@@ -119,12 +119,16 @@ class _Key:
 
 
 @pytest.mark.parametrize("kind", [batch.SR25519, batch.SECP256K1])
-def test_unported_curves_raise(kind):
-    v = batch.TorchBatchVerifier(device="cpu")
-    v.add(ed.PrivKeyEd25519(bytes(32)).pub_key(), b"m", bytes(64))
-    v.add(_Key(kind), b"m", bytes(64))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        v.verify()
+def test_curve_lanes_beside_ed25519_match_reference(kind):
+    """ed25519 lanes and one other curve's lanes in one verifier: one
+    dispatch per curve, and mask, tally and bitarray as the reference's."""
+    from tests.test_torch_mixed import _words, mixed_items, run_both
+
+    items = mixed_items([batch.ED25519, kind], n=14, seed=43)
+    port, got, want = run_both(items, tally=True)
+    assert got == want
+    assert any(want[1]) and not all(want[1])
+    np.testing.assert_array_equal(port.bit_words, _words(want[1]).astype(np.uint32))
 
 
 def test_unknown_key_type_raises():

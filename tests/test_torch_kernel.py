@@ -1,13 +1,16 @@
-"""The ed25519 kernel's wrapper (tmtpu_torch/gpu/kernel.py) and build
-helper. Input checks and the CPU path run everywhere; the cases marked
-``cuda`` build and launch the CUDA kernel and skip without a card."""
+"""The kernels' wrappers (tmtpu_torch/gpu/kernel.py for ed25519 and
+sr25519, tmtpu_torch/gpu/k1_kernel.py for secp256k1) and the build helper.
+Input checks and the CPU path run everywhere; the cases marked ``cuda``
+build and launch the CUDA kernels and skip without a card."""
 
 import numpy as np
 import pytest
 import torch
 
 from tmtpu_torch.crypto import ed25519_ref as ref
-from tmtpu_torch.gpu import build, kernel
+from tmtpu_torch.gpu import build, k1_kernel, kernel
+from tmtpu_torch.gpu import k1_verify as kv
+from tmtpu_torch.gpu import sr_verify as sv
 from tmtpu_torch.gpu import verify as tv
 
 from tests import torch_corpus as corpus
@@ -71,9 +74,57 @@ def test_limbs10_roundtrip(v):
 
 
 def test_build_names_every_source():
-    assert build.sources() == ["ed25519_verify"]
-    path = build.lib_path("ed25519_verify")
-    assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
+    assert build.sources() == ["ed25519_verify", "k1_verify", "sr25519_verify"]
+    for name in build.sources():
+        path = build.lib_path(name)
+        assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
+
+
+# The new kernels: (wrapper, launch counter, host prep, plain version on a
+# plane, oracle, corpora, plane rows).
+NEW_KERNELS = {
+    "sr25519": (kernel.sr_verify_packed, lambda: kernel.SR_LAUNCHES,
+                sv.prepare_sr_batch_packed, sv.plain_packed, corpus.sr_oracle,
+                corpus.SR_CORPORA, 128),
+    "secp256k1": (k1_kernel.verify_packed, lambda: k1_kernel.LAUNCHES,
+                  kv.prepare_k1_batch_packed, kv.plain_packed, corpus.k1_oracle,
+                  corpus.K1_CORPORA, 168),
+}
+
+
+@pytest.mark.parametrize("curve", sorted(NEW_KERNELS))
+def test_new_wrapper_cpu_tensor_takes_plain_version(curve):
+    wrapper, count, prep, _, oracle, corpora, _ = NEW_KERNELS[curve]
+    pks, msgs, sigs = corpora["adversarial"]()
+    packed, ok = prep(pks, msgs, sigs)
+    before = count()
+    got = wrapper(torch.from_numpy(packed))
+    assert count() == before  # no kernel launch on the CPU
+    assert got.dtype == torch.bool and got.shape == (len(sigs),)
+    np.testing.assert_array_equal(got.numpy() & ok, oracle(pks, msgs, sigs))
+
+
+@pytest.mark.parametrize("curve", sorted(NEW_KERNELS))
+@pytest.mark.parametrize("bad", ["dtype", "rows", "rank", "strides", "device"])
+def test_new_wrapper_rejects_bad_input(curve, bad):
+    wrapper, *_, rows = NEW_KERNELS[curve]
+    plane, err = {
+        "dtype": (torch.zeros((rows, 8), dtype=torch.int32), TypeError),
+        "rows": (torch.zeros((rows - 1, 8), dtype=torch.uint8), ValueError),
+        "rank": (torch.zeros(rows * 8, dtype=torch.uint8), ValueError),
+        "strides": (torch.zeros((8, rows), dtype=torch.uint8).T, ValueError),
+        "device": (torch.zeros((rows, 8), dtype=torch.uint8, device="meta"), ValueError),
+    }[bad]
+    with pytest.raises(err):
+        wrapper(plane)
+
+
+@pytest.mark.parametrize("curve", sorted(NEW_KERNELS))
+def test_new_wrapper_empty_plane(curve):
+    wrapper, count, *_, rows = NEW_KERNELS[curve]
+    before = count()
+    got = wrapper(torch.zeros((rows, 0), dtype=torch.uint8))
+    assert got.shape == (0,) and got.dtype == torch.bool and count() == before
 
 
 @pytest.mark.cuda
@@ -84,8 +135,7 @@ def test_kernel_equals_plain_on_card(cuda_card, name):
     before = kernel.LAUNCHES
     got = kernel.verify_packed(dev)
     assert kernel.LAUNCHES == before + 1
-    plain = tv.verify_core_compact(*tv.split_packed(dev), tv.base_table(dev.device))
-    assert torch.equal(got, plain)
+    assert torch.equal(got, tv.plain_packed(dev))
     np.testing.assert_array_equal(got.cpu().numpy() & ok, want)
 
 
@@ -104,3 +154,28 @@ def test_kernel_ragged_widths_on_card(cuda_card):
         packed = torch.from_numpy(np.repeat(
             tv.prepare_batch_packed(*corpus.signed(1, 40))[0], lanes, axis=1))
         assert kernel.verify_packed(packed.to(cuda_card)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve,name", [(c, n) for c in sorted(NEW_KERNELS)
+                                        for n in sorted(NEW_KERNELS[c][5])])
+def test_new_kernel_equals_plain_on_card(cuda_card, curve, name):
+    wrapper, count, prep, plain, oracle, corpora, _ = NEW_KERNELS[curve]
+    pks, msgs, sigs = corpora[name]()
+    packed, ok = prep(pks, msgs, sigs)
+    dev = torch.from_numpy(packed).to(cuda_card)
+    before = count()
+    got = wrapper(dev)
+    assert count() == before + 1
+    assert torch.equal(got, plain(dev))
+    np.testing.assert_array_equal(got.cpu().numpy() & ok, oracle(pks, msgs, sigs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(NEW_KERNELS))
+def test_new_kernel_ragged_widths_on_card(cuda_card, curve):
+    wrapper, _, prep, _, _, corpora, _ = NEW_KERNELS[curve]
+    one = prep(*[x[:1] for x in corpora["random"]()])[0]
+    for lanes in (1, 65, 200):
+        packed = torch.from_numpy(np.ascontiguousarray(np.repeat(one, lanes, axis=1)))
+        assert wrapper(packed.to(cuda_card)).all()

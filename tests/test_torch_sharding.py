@@ -1,6 +1,6 @@
-"""The port's fused verify + tally + bitarray (tmtpu_torch/gpu/sharding.py)
-against the reference's bitarray pack and power-limb tally and against
-host truth, on the CPU."""
+"""The port's fused verify + tally and its bitarray pack
+(tmtpu_torch/gpu/sharding.py) against the reference's bitarray pack and
+power-limb tally and against host truth, on the CPU."""
 
 import numpy as np
 import pytest
@@ -25,6 +25,14 @@ def test_pack_bitarray_matches_reference(b):
     np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
 
 
+def _words(mask):
+    """The bitarray words of a returned mask, packed as crypto.batch packs
+    them."""
+    words = sh.pack_bitarray(torch.from_numpy(mask))
+    assert words.dtype == torch.int64
+    return words.numpy().astype(np.uint32)
+
+
 def _powers(n, seed):
     # spread over the int64 range a validator set can carry
     return [int(p) for p in np.random.default_rng(seed).integers(1, 2**40, n)]
@@ -34,7 +42,7 @@ def _powers(n, seed):
 def test_batch_verify_tally_against_host_truth(name):
     pks, msgs, sigs = corpus.CORPORA[name]()
     powers = _powers(len(sigs), 3)
-    mask, tally, words = sh.batch_verify_tally(pks, msgs, sigs, powers, device="cpu")
+    mask, tally = sh.batch_verify_tally(pks, msgs, sigs, powers, device="cpu")
     want = corpus.oracle(pks, msgs, sigs)
     np.testing.assert_array_equal(mask, want)
     assert isinstance(tally, int)
@@ -42,7 +50,7 @@ def test_batch_verify_tally_against_host_truth(name):
     # the reference's power-limb path gives the same integer
     limbs = jsh.powers_to_limbs(powers) * want[None].astype(np.int32)
     assert tally == jsh.limb_sums_to_int(limbs.sum(axis=1))
-    assert words.dtype == np.uint32
+    words = _words(mask)
     np.testing.assert_array_equal(words, np.asarray(jsh.pack_bitarray(jnp.asarray(want))))
 
 
@@ -51,8 +59,9 @@ def test_pad_lanes_excluded_from_tally_and_bits():
     # word stay zero and add nothing to the tally
     pks, msgs, sigs = corpus.signed(33, 21)
     powers = [10**12 + i for i in range(33)]
-    mask, tally, words = sh.batch_verify_tally(pks, msgs, sigs, powers, device="cpu")
+    mask, tally = sh.batch_verify_tally(pks, msgs, sigs, powers, device="cpu")
     assert mask.all() and tally == sum(powers)
+    words = _words(mask)
     assert words.shape == (2,)
     np.testing.assert_array_equal(words, [0xFFFFFFFF, 1])
 
@@ -61,11 +70,10 @@ def test_host_rejected_lane_power_excluded():
     pks, msgs, sigs = corpus.signed(4, 22)
     s_int = int.from_bytes(sigs[2][32:], "little") + tv.L
     sigs[2] = sigs[2][:32] + int.to_bytes(s_int, 32, "little")  # s >= L
-    mask, tally, words = sh.batch_verify_tally(pks, msgs, sigs, [5, 7, 11, 13],
-                                               device="cpu")
+    mask, tally = sh.batch_verify_tally(pks, msgs, sigs, [5, 7, 11, 13], device="cpu")
     assert mask.tolist() == [True, True, False, True]
     assert tally == 5 + 7 + 13
-    assert words.tolist() == [0b1011]
+    assert _words(mask).tolist() == [0b1011]
 
 
 def test_step_kernel_equals_step_compact_on_cpu():
@@ -81,8 +89,8 @@ def test_step_kernel_equals_step_compact_on_cpu():
 
 
 def test_empty_batch():
-    mask, tally, words = sh.batch_verify_tally([], [], [], [], device="cpu")
-    assert mask.shape == (0,) and tally == 0 and words.shape == (0,)
+    mask, tally = sh.batch_verify_tally([], [], [], [], device="cpu")
+    assert mask.shape == (0,) and tally == 0 and _words(mask).shape == (0,)
 
 
 @pytest.mark.parametrize("entry", ["batch_verify_tally", "batch_verify"])
@@ -100,9 +108,9 @@ def test_device_sees_exactly_the_batch_lanes(entry, monkeypatch):
     pks, msgs, sigs = corpus.signed(5, 23)
     sigs[1] = bytes([sigs[1][0] ^ 0xFF]) + sigs[1][1:]
     if entry == "batch_verify_tally":
-        mask, tally, words = sh.batch_verify_tally(pks, msgs, sigs, [1, 2, 4, 8, 16],
-                                                   device="cpu")
-        assert tally == 1 + 4 + 8 + 16 and words.tolist() == [0b11101]
+        mask, tally = sh.batch_verify_tally(pks, msgs, sigs, [1, 2, 4, 8, 16],
+                                            device="cpu")
+        assert tally == 1 + 4 + 8 + 16 and _words(mask).tolist() == [0b11101]
     else:
         mask = tv.batch_verify(pks, msgs, sigs, device="cpu")
     assert widths == [5]
@@ -115,6 +123,6 @@ def test_matches_reference_batch_verify_tally():
     pks, msgs, sigs = corpus.adversarial()
     powers = _powers(len(sigs), 4)
     want_mask, want_tally = jsh.batch_verify_tally(pks, msgs, sigs, powers)
-    mask, tally, _ = sh.batch_verify_tally(pks, msgs, sigs, powers, device="cpu")
+    mask, tally = sh.batch_verify_tally(pks, msgs, sigs, powers, device="cpu")
     np.testing.assert_array_equal(mask, want_mask)
     assert tally == want_tally

@@ -184,21 +184,15 @@ GE_FN int scalar_digit_msb(const uint8_t s[32], int w) {
     return (s[j >> 1] >> ((j & 1) * 4)) & 15;
 }
 
-// The whole per-lane verify of tmtpu/tpu/kernel.py::_verify_body:
-// decompress A, build the 16-entry cached table of d*(-A), run the
-// 64-window Straus/Shamir ladder [s]B + [h](-A) and byte-compare the
-// encoding of the result with R. btab is the niels table of d*B for d in
-// 0..15. Returns 1 when the signature verifies.
-GE_FN int ed25519_verify_lane(const uint8_t pk[32], const uint8_t r[32],
-                              const uint8_t s[32], const uint8_t h[32],
-                              const ge_niels* btab) {
-    fe y;
-    fe_frombytes(y, pk);
-    ge_p3 a;
-    const bool a_ok = ge_decompress(a, y, pk[31] >> 7);
-    ge_negate(a, a);
-
-    // per-lane table of d*(-A), d = 0..15 (thread-local memory)
+// [s]B + [h]A by the 64-window 4-bit Straus/Shamir ladder of
+// tmtpu/tpu/kernel.py::_shamir_ladder (the doublings shared by both
+// scalars): build the 16-entry cached table of d*A, then per window double
+// four times and add btab[digit of s] and tab[digit of h]. s and h are
+// 32-byte little-endian scalars; btab is the niels table of d*B for d in
+// 0..15. Shared by the ed25519 and sr25519 verifies.
+GE_FN void ge_double_scalar(ge_p3& p, const uint8_t s[32], const uint8_t h[32],
+                            const ge_p3& a, const ge_niels* btab) {
+    // per-lane table of d*A, d = 0..15 (thread-local memory)
     ge_cached tab[16];
     fe_set_small(tab[0].YmX, 1);
     fe_set_small(tab[0].YpX, 1);
@@ -212,7 +206,6 @@ GE_FN int ed25519_verify_lane(const uint8_t pk[32], const uint8_t r[32],
         ge_to_cached(tab[d], acc);
     }
 
-    ge_p3 p;
     ge_identity(p);
 #pragma unroll 1
     for (int w = 0; w < 64; w++) {
@@ -221,6 +214,22 @@ GE_FN int ed25519_verify_lane(const uint8_t pk[32], const uint8_t r[32],
         ge_add_niels(p, p, btab[scalar_digit_msb(s, w)]);
         ge_add_cached(p, p, tab[scalar_digit_msb(h, w)]);
     }
+}
+
+// The whole per-lane verify of tmtpu/tpu/kernel.py::_verify_body:
+// decompress A, run the ladder [s]B + [h](-A) and byte-compare the
+// encoding of the result with R. btab is the niels table of d*B for d in
+// 0..15. Returns 1 when the signature verifies.
+GE_FN int ed25519_verify_lane(const uint8_t pk[32], const uint8_t r[32],
+                              const uint8_t s[32], const uint8_t h[32],
+                              const ge_niels* btab) {
+    fe y;
+    fe_frombytes(y, pk);
+    ge_p3 a;
+    const bool a_ok = ge_decompress(a, y, pk[31] >> 7);
+    ge_negate(a, a);
+    ge_p3 p;
+    ge_double_scalar(p, s, h, a, btab);
 
     fe zinv, x, yr;
     fe_invert(zinv, p.Z);

@@ -1,11 +1,15 @@
-"""The ed25519 verify kernel's wrapper, launch counter and plain version.
+"""The ed25519 and sr25519 verify kernels' wrappers, launch counters and
+plain versions.
 
-Counterpart of tmtpu/tpu/kernel.py (ed25519 half): the Pallas kernel
-``_verify_kernel`` becomes the hand-written CUDA kernel
-``csrc/ed25519_verify.cu``, built by ``build.py`` and bound through a plain
-C function with ctypes. ``verify_packed`` launches it for a CUDA tensor and
-takes the plain PyTorch version (``verify.verify_core_compact``) only for a
-CPU tensor; there is no fallback from one to the other.
+Counterpart of tmtpu/tpu/kernel.py: the Pallas kernels ``_verify_kernel``
+and ``_sr_verify_kernel`` become the hand-written CUDA kernels
+``csrc/ed25519_verify.cu`` and ``csrc/sr25519_verify.cu``, built by
+``build.py`` and bound through plain C functions with ctypes.
+``verify_packed`` and ``sr_verify_packed`` launch them for a CUDA tensor and
+take the plain PyTorch versions (``verify.plain_packed``,
+``sr_verify.plain_packed``) only for a CPU tensor; there is no
+fallback from one to the other. Both kernels read the same fixed-base table
+of B.
 """
 
 from __future__ import annotations
@@ -16,10 +20,11 @@ import numpy as np
 import torch
 
 from tmtpu_torch.crypto import ed25519_ref as ref
-from tmtpu_torch.gpu import build, verify
+from tmtpu_torch.gpu import build, sr_verify, verify
 
-# Launches of the CUDA kernel, counted where it is launched and nowhere else.
-LAUNCHES = 0
+# Launches of each CUDA kernel, counted where it is launched and nowhere else.
+LAUNCHES = 0  # ed25519_verify
+SR_LAUNCHES = 0  # sr25519_verify
 
 _POS = [0, 26, 51, 77, 102, 128, 153, 179, 204, 230, 255]
 
@@ -52,33 +57,27 @@ def _device_table(device: torch.device) -> torch.Tensor:
     return _TABLES[device]
 
 
-def _check_packed(packed: torch.Tensor) -> None:
+def check_packed(packed: torch.Tensor, rows: int) -> None:
+    """Raise unless ``packed`` is a contiguous [rows, B] uint8 plane on the
+    CPU or a CUDA card."""
     if packed.dtype != torch.uint8:
         raise TypeError(f"packed plane must be uint8, got {packed.dtype}")
-    if packed.dim() != 2 or packed.shape[0] != 128:
-        raise ValueError(f"packed plane must be [128, B], got {tuple(packed.shape)}")
+    if packed.dim() != 2 or packed.shape[0] != rows:
+        raise ValueError(f"packed plane must be [{rows}, B], got {tuple(packed.shape)}")
     if not packed.is_contiguous():
         raise ValueError("packed plane must be contiguous")
-
-
-def verify_packed(packed: torch.Tensor) -> torch.Tensor:
-    """Per-lane ed25519 verify of a packed [128, B] uint8 plane (pk | r |
-    s | h). Returns bool [B] on the plane's device: the CUDA kernel for a
-    CUDA tensor, the plain PyTorch version for a CPU tensor."""
-    global LAUNCHES
-    _check_packed(packed)
-    if packed.device.type == "cpu":
-        return verify.verify_core_compact(*verify.split_packed(packed),
-                                          verify.base_table(packed.device))
-    if packed.device.type != "cuda":
+    if packed.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {packed.device}")
+
+
+def launch(name: str, packed: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/<name>.cu`` over a checked CUDA plane with its table on
+    the current stream, through ``<name>_launch(packed, B, table, out,
+    stream)``; B > 0. Returns the int32 [B] verdicts; raises if the launch
+    was refused."""
     B = packed.shape[1]
-    table = _device_table(packed.device)
     out = torch.empty(B, dtype=torch.int32, device=packed.device)
-    if B == 0:
-        return out != 0
-    lib = build.load("ed25519_verify")
-    fn = lib.ed25519_verify_launch
+    fn = getattr(build.load(name), f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -86,6 +85,35 @@ def verify_packed(packed: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(packed.device).cuda_stream
         rc = fn(packed.data_ptr(), B, table.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"ed25519_verify launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    return out
+
+
+def verify_packed(packed: torch.Tensor) -> torch.Tensor:
+    """Per-lane ed25519 verify of a packed [128, B] uint8 plane (pk | r |
+    s | h). Returns bool [B] on the plane's device: the CUDA kernel for a
+    CUDA tensor, the plain PyTorch version for a CPU tensor."""
+    global LAUNCHES
+    check_packed(packed, 128)
+    if packed.shape[1] == 0:
+        return torch.zeros(0, dtype=torch.bool, device=packed.device)
+    if packed.device.type == "cpu":
+        return verify.plain_packed(packed)
+    out = launch("ed25519_verify", packed, _device_table(packed.device))
     LAUNCHES += 1
+    return out != 0
+
+
+def sr_verify_packed(packed: torch.Tensor) -> torch.Tensor:
+    """Per-lane sr25519 verify of a packed [128, B] uint8 plane (pk | r |
+    s | k). Returns bool [B] on the plane's device: the CUDA kernel for a
+    CUDA tensor, the plain PyTorch version for a CPU tensor."""
+    global SR_LAUNCHES
+    check_packed(packed, 128)
+    if packed.shape[1] == 0:
+        return torch.zeros(0, dtype=torch.bool, device=packed.device)
+    if packed.device.type == "cpu":
+        return sr_verify.plain_packed(packed)
+    out = launch("sr25519_verify", packed, _device_table(packed.device))
+    SR_LAUNCHES += 1
     return out != 0

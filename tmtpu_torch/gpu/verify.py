@@ -184,6 +184,12 @@ def base_table(device) -> torch.Tensor:
     return _BASE_TABLES[dev]
 
 
+def plain_packed(packed):
+    """The plain version of the ed25519 kernel on a packed [128, B] plane,
+    on the plane's device: bool [B]."""
+    return verify_core_compact(*split_packed(packed), base_table(packed.device))
+
+
 def batch_verify(pks, msgs, sigs, device=None) -> np.ndarray:
     """ed25519 batch verification: bool [B] per-signature validity, exact
     per lane (no batch equation), on ``device`` (None: the CUDA card)."""
