@@ -15,8 +15,9 @@ Drives the port's two main paths once each, as a validator would, through
 
 Each path runs with every launch counter set to 0 just before it and read
 just after. Then each kernel is held against its plain PyTorch version on
-the same planes at each width its paths give it, at 10,000 lanes and on an
-adversarial block, samples are
+the same planes at each width its paths give it, at 10,000 lanes, at 1, 3,
+5 and 33 lanes (the ragged edge of the ed25519 and sr25519 kernels' blocks
+of four-thread quads) and on an adversarial block, samples are
 checked against the pure-Python oracles, and the kernels, the plain
 versions, host prep and both paths end to end are timed.
 
@@ -32,6 +33,7 @@ import hashlib
 import json
 import multiprocessing
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -100,6 +102,12 @@ SR_FIXED_MS = (2 * 24 + 99 + 63 * 13 + 4, 2 * 257 + 28 + 63 * 16)
 K1_FIXED_MS = (63 * 4 * 6 + 14 * 12 + 14 + 2, 63 * 4 * 2 + 255)
 K1_ADD_M = 12
 K1_PRODUCTS_PER_M, K1_PRODUCTS_PER_S = 64, 36
+
+# The ed25519 and sr25519 kernels run a quad of four threads per signature
+# with dynamic shared memory, which ptxas does not see; each library reports
+# its own size through <name>_smem_bytes (csrc/verify_quad.cuh).
+QUAD_KERNELS = ("ed25519_verify", "sr25519_verify")
+RAGGED = (1, 3, 5, 33)
 
 N_SR, N_K1 = 500, 500
 BAD_PER_CURVE = 5
@@ -187,6 +195,18 @@ def bound(int_muls: int, io_bytes: int):
     bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
     return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
             ops_ms, bytes_ms)
+
+
+def ptxas_summary(log: str) -> str:
+    """Registers, spills, stack and static shared memory from nvcc's
+    -Xptxas -v output."""
+    regs = re.findall(r"Used (\d+) registers", log)
+    spill = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    stack = re.findall(r"(\d+) bytes stack frame", log)
+    smem = re.findall(r"(\d+) bytes smem", log)
+    return (f"{','.join(regs)} registers, spill stores/loads "
+            f"{','.join(f'{a}/{b}' for a, b in spill)} B, stack {','.join(stack)} B, "
+            f"static shared {','.join(smem) or '0'} B")
 
 
 def time_cuda(fn, runs: int) -> list:
@@ -296,6 +316,18 @@ def check_kernel(curve: Curve, pks, msgs, sigs, expect, adversarial, n, card):
         mismatches += p_mismatch
         max_abs_err = max(max_abs_err, p_err)
 
+    # the ragged edge: the path plane's first 1, 3, 5 and 33 lanes, each
+    # launched alone, against one plain call over all of them
+    ragged = [lane_packed[:, :r].contiguous() for r in RAGGED]
+    r_kernel = torch.cat([curve.launch(p) for p in ragged])
+    r_plain = curve.plain(torch.cat(ragged, dim=1).contiguous())
+    r_mismatch = int((r_kernel != r_plain).sum().item())
+    check(r_mismatch == 0, f"{curve.name} == plain at {RAGGED} lanes ({r_mismatch} differ)")
+    check(np.array_equal(r_kernel.cpu().numpy() & np.concatenate([lane_ok[:r] for r in RAGGED]),
+                         np.concatenate([expect[:r] for r in RAGGED])),
+          f"{curve.name} mask at {RAGGED} lanes")
+    max_abs_err = max(max_abs_err, int((r_kernel.int() - r_plain.int()).abs().max().item()))
+
     a_pks, a_msgs, a_sigs = adversarial
     a_np, a_ok = curve.prep(a_pks, a_msgs, a_sigs)
     a_k, _, a_mismatch, a_err = hold(curve, torch.from_numpy(a_np).cuda(),
@@ -314,8 +346,8 @@ def check_kernel(curve: Curve, pks, msgs, sigs, expect, adversarial, n, card):
                                                        [msgs[i] for i in sample],
                                                        [sigs[i] for i in sample])),
           f"{curve.name} sampled lanes against the oracle")
-    print(f"{curve.name} == plain: {n} lanes, the path's {len(sigs)} and "
-          f"{len(a_sigs)} adversarial lanes, 0 mismatches; "
+    print(f"{curve.name} == plain: {n} lanes, the path's {len(sigs)}, "
+          f"{', '.join(map(str, RAGGED))} and {len(a_sigs)} adversarial lanes, 0 mismatches; "
           f"{len(sample)} + {len(a_sigs)} lanes match the oracle")
 
     time_cuda(lambda: curve.launch(packed), 3)
@@ -371,9 +403,11 @@ def main() -> int:
     logs = build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
-                print(f"  {name}: {line.strip()}")
+        line = f"ptxas {name}: {ptxas_summary(log)}"
+        if name in QUAD_KERNELS:
+            smem = getattr(build.load(name), f"{name}_smem_bytes")()
+            line += f"; dynamic shared {smem} B a block"
+        print(line)
 
     # 3. sign every key's vote: 10,000 ed25519, 500 sr25519, 500 secp256k1
     t0 = time.perf_counter()

@@ -4,8 +4,10 @@ fe_secp256k1.cuh, ge_secp256k1.cuh) with the test harness
 csrc/host_harness.cpp into a temporary shared library. The field ops of
 both fields are held against Python integers, and the per-lane verifies of
 the three kernels, the very functions each kernel thread runs, against the
-oracles and the plain PyTorch masks. This host build serves the tests
-only."""
+oracles and the plain PyTorch masks. The ed25519 and sr25519 kernels verify
+a signature with a quad of four threads; the host build runs the same quad
+code with the four roles in lockstep and reports -1 where they disagree.
+This host build serves the tests only."""
 
 import ctypes
 import os
@@ -51,6 +53,9 @@ def harness(tmp_path_factory):
     lib.host_ristretto_decode.argtypes = [ctypes.c_char_p, ctypes.c_int,
                                           ctypes.c_void_p, ctypes.c_void_p]
     lib.host_ristretto_decode.restype = None
+    lib.host_fe_limbs.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_int]
+    lib.host_fe_limbs.restype = None
     for fn in (lib.host_sr_verify, lib.host_k1_verify):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = None
@@ -63,6 +68,7 @@ def _host_verify(lib, packed: np.ndarray) -> np.ndarray:
     out = np.zeros(packed.shape[1], dtype=np.int32)
     lib.host_verify(packed.ctypes.data, packed.shape[1], table.ctypes.data,
                     out.ctypes.data)
+    assert (out >= 0).all(), "the quad's roles disagree"
     return out != 0
 
 
@@ -82,6 +88,8 @@ FIELD_OPS = {
     4: ("invert", lambda a, b: pow(a, P - 2, P)),
     5: ("pow22523", lambda a, b: pow(a, (P - 5) // 8, P)),
     6: ("freeze", lambda a, b: a % P),
+    7: ("sq", lambda a, b: a * a % P),
+    8: ("sq_of_difference", lambda a, b: (a - b) ** 2 % P),
 }
 
 
@@ -97,6 +105,45 @@ def test_field_op_against_python_ints(harness, op):
     for i in range(n):
         got = int.from_bytes(out.raw[32 * i : 32 * i + 32], "little")
         assert got == f(a[i], b[i]), (FIELD_OPS[op][0], a[i], b[i])
+
+
+_LIMB_POS = [0, 26, 51, 77, 102, 128, 153, 179, 204, 230]
+
+
+def _loose_limbs(rng, n):
+    """n limb vectors at the edges of what the field routines accept: the
+    carried range (|v| up to ~1.01 * 2^25 even, 2^24 odd, either sign) and
+    fe_frombytes' non-negative limbs (up to 2^26 - 1 / 2^25 - 1)."""
+    bits = np.array([26, 25] * 5)
+    carried = np.where(bits == 26, 2**25 + 2**19, 2**24 + 2**18)
+    out = [np.where(bits == 26, 2**26 - 1, 2**25 - 1), -carried, carried]
+    for _ in range(n - 3):
+        if rng.random() < 0.5:
+            out.append(rng.integers(-carried, carried + 1))
+        else:
+            out.append(rng.integers(0, 2**bits))
+    return np.array(out, dtype=np.int32)
+
+
+def _limbs_value(v):
+    return sum(int(x) << p for x, p in zip(v, _LIMB_POS))
+
+
+@pytest.mark.parametrize("op", [0, 1], ids=["mul", "sq"])
+def test_field_op_on_loose_limbs(harness, op):
+    """fe_mul and the dedicated fe_sq on raw limbs at the bounds the
+    routines accept, negative limbs included: the squaring's doubled and
+    38-fold terms must keep the accumulators inside fe_reduce64's range."""
+    rng = np.random.default_rng(23)
+    a = _loose_limbs(rng, 300)
+    b = a[::-1].copy()
+    n = len(a)
+    out = ctypes.create_string_buffer(32 * n)
+    harness.host_fe_limbs(op, a.ctypes.data, b.ctypes.data, out, n)
+    for i in range(n):
+        x, y = _limbs_value(a[i]), _limbs_value(b[i])
+        want = x * (y if op == 0 else x) % P
+        assert int.from_bytes(out.raw[32 * i : 32 * i + 32], "little") == want, a[i]
 
 
 @pytest.mark.parametrize("name", sorted(corpus.CORPORA))
@@ -123,7 +170,7 @@ def test_lane_verify_on_unreduced_encodings(harness):
         kernel.verify_packed(torch.from_numpy(packed)).numpy())
 
 
-@pytest.mark.parametrize("n", [1, 2, 31, 33, 63, 65, 100])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 31, 33, 63, 65, 100])
 def test_lane_verify_at_ragged_widths(harness, n):
     """Any width: lane t reads byte k of a plane at k*B + t, as each kernel
     thread does, so no lane reads another's bytes whatever B is."""
@@ -213,6 +260,7 @@ def _host_new(lib, curve, packed):
         table = kernel.base_table_limbs()
         lib.host_sr_verify(packed.ctypes.data, packed.shape[1], table.ctypes.data,
                            out.ctypes.data)
+        assert (out >= 0).all(), "the quad's roles disagree"
     else:
         table = k1_kernel.base_table_words()
         lib.host_k1_verify(packed.ctypes.data, packed.shape[1], table.ctypes.data,
@@ -258,7 +306,7 @@ def test_new_lane_verify_against_oracle_and_plain(harness, new_planes, curve, na
 
 
 @pytest.mark.parametrize("curve", sorted(NEW))
-@pytest.mark.parametrize("n", [1, 33, 65])
+@pytest.mark.parametrize("n", [1, 3, 5, 33, 65])
 def test_new_lane_verify_at_ragged_widths(harness, curve, n):
     """Lane t reads byte k of a plane at k*B + t whatever B is: the lanes of
     a corpus tiled to n lanes keep their verdicts."""

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of tmtpu_torch, and not chip_smoke.py,
-imports jax or anything of the JAX package tmtpu, nor the ``cryptography``
+"""The port stands alone: no module of tmtpu_torch, and neither chip_smoke.py
+nor kernel_times.py, imports jax or anything of the JAX package tmtpu, nor the ``cryptography``
 package (the machine with the card has none; the port signs and verifies
 secp256k1 with its own pure-Python curve)."""
 
@@ -14,7 +14,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_times.py")]
     for dirpath, dirs, files in os.walk(os.path.join(ROOT, "tmtpu_torch")):
         dirs[:] = [d for d in dirs if d != "build"]  # kernel build outputs
         out += [os.path.join(dirpath, f) for f in sorted(files) if f.endswith(".py")]

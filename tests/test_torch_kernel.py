@@ -80,6 +80,22 @@ def test_build_names_every_source():
         assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
 
 
+def test_lib_path_of_another_tree(tmp_path):
+    """Another tree's sources build into their own directory, under a name
+    that follows their content."""
+    import os
+    import shutil
+    csrc, out_dir = str(tmp_path / "csrc"), str(tmp_path / "out")
+    shutil.copytree(build.CSRC, csrc)
+    name = "ed25519_verify"
+    path = build.lib_path(name, csrc, out_dir)
+    assert os.path.dirname(path) == out_dir
+    assert os.path.basename(path) == os.path.basename(build.lib_path(name))
+    with open(os.path.join(csrc, "quad.cuh"), "a") as fh:
+        fh.write("\n")
+    assert build.lib_path(name, csrc, out_dir) != path
+
+
 # The new kernels: (wrapper, launch counter, host prep, plain version on a
 # plane, oracle, corpora, plane rows).
 NEW_KERNELS = {
@@ -149,8 +165,8 @@ def test_kernel_rejects_bad_input_on_card(cuda_card):
 
 @pytest.mark.cuda
 def test_kernel_ragged_widths_on_card(cuda_card):
-    # widths that are not a multiple of the 64-thread block
-    for lanes in (1, 65, 200):
+    # widths that are not a multiple of the 64-thread block's 16 quads
+    for lanes in (1, 3, 5, 33, 65, 200):
         packed = torch.from_numpy(np.repeat(
             tv.prepare_batch_packed(*corpus.signed(1, 40))[0], lanes, axis=1))
         assert kernel.verify_packed(packed.to(cuda_card)).all()
@@ -176,6 +192,6 @@ def test_new_kernel_equals_plain_on_card(cuda_card, curve, name):
 def test_new_kernel_ragged_widths_on_card(cuda_card, curve):
     wrapper, _, prep, _, _, corpora, _ = NEW_KERNELS[curve]
     one = prep(*[x[:1] for x in corpora["random"]()])[0]
-    for lanes in (1, 65, 200):
+    for lanes in (1, 3, 5, 33, 65, 200):
         packed = torch.from_numpy(np.ascontiguousarray(np.repeat(one, lanes, axis=1)))
         assert wrapper(packed.to(cuda_card)).all()

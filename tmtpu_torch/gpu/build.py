@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` becomes ``build/<name>-<hash>.so``, a shared
 library with a plain C interface loaded through ``ctypes``. The hash covers
 every source and header in ``csrc/`` plus the compiler flags, so an edit
 rebuilds and an unchanged tree reuses the library. Builds run at first use
-(or through ``build_all``, which starts one nvcc per source at once), never
-at import. The build directory is inside the package and ignored by git.
+(or through ``build_all``, which starts one nvcc per source at once and can
+also build another tree's sources into another directory), never at
+import. The build directory is inside the package and ignored by git.
 """
 
 from __future__ import annotations
@@ -41,34 +42,35 @@ def _nvcc() -> str:
                        "the kernels")
 
 
-def _tree_hash() -> str:
+def _tree_hash(csrc: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(os.listdir(CSRC)):
+    for f in sorted(os.listdir(csrc)):
         if f.endswith((".cu", ".cuh")):
             h.update(f.encode())
-            with open(os.path.join(CSRC, f), "rb") as fh:
+            with open(os.path.join(csrc, f), "rb") as fh:
                 h.update(fh.read())
     return h.hexdigest()[:16]
 
 
-def lib_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"{name}-{_tree_hash()}.so")
+def lib_path(name: str, csrc: str = CSRC, out_dir: str = BUILD_DIR) -> str:
+    return os.path.join(out_dir, f"{name}-{_tree_hash(csrc)}.so")
 
 
-def build_all(names=None) -> dict:
-    """Build every listed kernel (default: all) that is not built yet, one
-    nvcc process per source, all started together. Returns {name: nvcc
-    output} for the sources compiled now; raises if any build fails."""
+def build_all(names=None, csrc: str = CSRC, out_dir: str = BUILD_DIR) -> dict:
+    """Build every listed kernel (default: all) of ``csrc`` into ``out_dir``
+    that is not built yet, one nvcc process per source, all started
+    together. Returns {name: nvcc output} for the sources compiled now;
+    raises if any build fails."""
     names = sources() if names is None else list(names)
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name in names:
-        out = lib_path(name)
+        out = lib_path(name, csrc, out_dir)
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, f"{name}.cu")]
+               os.path.join(csrc, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

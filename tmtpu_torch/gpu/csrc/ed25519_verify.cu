@@ -1,4 +1,5 @@
-// Batched ed25519 verification on Hopper (sm_90a): one thread per lane.
+// Batched ed25519 verification on Hopper (sm_90a): four threads (a quad)
+// per signature.
 //
 // Replaces the Pallas TPU kernel tmtpu/tpu/kernel.py::_verify_kernel
 // (launched by _verify_pallas_jit / verify_compact_kernel) and computes
@@ -8,73 +9,59 @@
 // malformed lanes (wrong lengths, s >= L, non-canonical A.y).
 //
 // Input: the packed [128, B] uint8 plane (pk | r | s | h rows, lanes on the
-// trailing axis), so thread t reads byte k of a plane at k*B + t and
-// neighbouring threads read neighbouring bytes. Any B: the grid covers
-// ceil(B / 64) blocks and the ragged edge is masked. Output: int32 [B],
-// 1 where the lane verifies.
+// trailing axis). Any B: the grid covers ceil(B / (threads / 4)) blocks and
+// the ragged edge is masked (verify_quad.cuh). Output: int32 [B], 1 where
+// the lane verifies.
 //
-// Tables: the fixed-base niels table of d*B (16 x 3 field elements, 1920
-// bytes) is built on the host and copied into shared memory once per block
-// (lanes index it by different digits, which __constant__ would
-// serialize). The per-lane cached table of d*(-A) (16 x 4 field elements,
-// 2560 bytes) lives in thread-local memory.
+// Bound on an H100 SXM: the work is integer multiplies. Verification needs
+// about 1,790 field multiplies and 1,545 squarings per lane (chip_smoke.py
+// counts them from the run's digits), about 264,000 32x32->64 products at
+// 100 per multiply and 55 per squaring; at 64 integer multiply-adds per SM
+// per clock, 132 SMs at 1.98 GHz give 16.7e12 per second, so 10,000 lanes
+// cannot take less than ~0.16 ms. The 132 bytes a lane moves are noise
+// (1.3 MB at 3.35 TB/s = 0.4 us), so neither TMA nor the tensor cores (the
+// work is a dependent chain of integer products on ten-limb elements) have
+// anything to offer: what is scarce is issue parallelism to hide the
+// chain's latency.
 //
-// Bound on an H100 SXM: the work is integer multiplies. Per lane this code
-// does 3,677 field multiplies (decompress 275, table 127, ladder
-// 64 x 47 = 3,008, final inversion and two products 267; squarings are
-// multiplies here, and zero digits are added like any other), each 100
-// 32x32->64 products plus ten multiplies by 19: about 408,000 multiply
-// instructions. Verification itself needs about 1,790 multiplies and 1,545
-// squarings per lane (chip_smoke.py counts them from the run's digits),
-// about 264,000 products at 100 per multiply and 55 per squaring. At 64
-// integer multiply-adds per SM per clock (compute capability 9.0), 132 SMs
-// at 1.98 GHz give 16.7e12 per second, so 10,000 lanes cannot take less
-// than ~0.16 ms. The 132 bytes a lane moves are noise (1.3 MB at 3.35 TB/s
-// = 0.4 us). This first version does nothing for that bound beyond one
-// thread per lane: there are only ~76 threads per SM at 10,000 lanes, so
-// each SM runs far below its issue rate, and the per-lane table sits in
-// local memory. Faster versions (several lanes' field ops interleaved per
-// thread, a dedicated squaring, the table in shared memory, the tally
-// fused as an epilogue) are later work.
+// Design: a quad of four threads verifies a signature, so that 10,000
+// lanes make 40,000 threads (~9.5 warps an SM) and each thread's dependent
+// chain is about a quarter of one-thread-per-lane's ~408,000 products. In
+// the ladder each thread runs one squaring and one multiply per doubling
+// and two multiplies per addition (ge25519.cuh), zero digits add nothing,
+// squarings take 55 products, carries run as parallel passes
+// (fe25519.cuh), and the per-lane table of d*(-A) lies in shared memory.
+// Per thread, for random scalars: decompressing A 20M + 255S (every role
+// runs it, so no exchange), the table 14 additions and 15 conversions
+// (43M), 64 windows of four doublings (256M + 256S) and about 120
+// additions (240M), the final inversion and two products (13M + 254S):
+// about 570M + 765S, ~99,000 products. Decompression and inversion are
+// serial on every role, ~31,000 of them (~31%); a Montgomery batch
+// inversion across a warp's eight signatures would cut the work of the
+// inversion but not its latency, and is not done. ptxas: 168 registers
+// (the cap of verify_quad.cuh), no spill.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fe25519.cuh"
 #include "ge25519.cuh"
+#include "verify_quad.cuh"
 
-#define VERIFY_THREADS 64
+#define ED25519_THREADS 64
 
-__global__ void __launch_bounds__(VERIFY_THREADS)
-ed25519_verify_kernel(const uint8_t* __restrict__ packed, int B,
-                      const int32_t* __restrict__ btab,
-                      int32_t* __restrict__ out) {
-    __shared__ ge_niels s_btab[16];
-    int32_t* s_flat = reinterpret_cast<int32_t*>(s_btab);
-    for (int i = threadIdx.x; i < 16 * 3 * 10; i += blockDim.x) s_flat[i] = btab[i];
-    __syncthreads();
-
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= B) return;
-    uint8_t pk[32], r[32], s[32], h[32];
-#pragma unroll
-    for (int k = 0; k < 32; k++) {
-        pk[k] = packed[(size_t)k * B + t];
-        r[k] = packed[(size_t)(32 + k) * B + t];
-        s[k] = packed[(size_t)(64 + k) * B + t];
-        h[k] = packed[(size_t)(96 + k) * B + t];
+struct Ed25519Quad {
+    __device__ __forceinline__ int operator()(const quad& q, const uint8_t* lane,
+                                              const ge_niels* btab, quad_table& tab) const {
+        return ed25519_verify_quad(q, lane, btab, tab);
     }
-    out[t] = ed25519_verify_lane(pk, r, s, h, s_btab);
-}
+};
 
 // Plain C entry for ctypes. Launches on ``stream`` and returns
 // cudaGetLastError() (0 when the launch was accepted).
 extern "C" int ed25519_verify_launch(const void* packed, int B, const void* btab,
                                      void* out, void* stream) {
-    if (B <= 0) return 0;
-    const int blocks = (B + VERIFY_THREADS - 1) / VERIFY_THREADS;
-    ed25519_verify_kernel<<<blocks, VERIFY_THREADS, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint8_t*>(packed), B, static_cast<const int32_t*>(btab),
-        static_cast<int32_t*>(out));
-    return (int)cudaGetLastError();
+    return quad_verify_launch<Ed25519Quad>(packed, B, btab, out, stream, ED25519_THREADS);
 }
+
+// The dynamic shared memory a launch gives each block, in bytes.
+extern "C" int ed25519_verify_smem_bytes(void) { return (int)quad_smem_bytes(ED25519_THREADS); }

@@ -1,17 +1,19 @@
-// GF(2^255 - 19) arithmetic for one lane, shared by the CUDA kernel and a
-// host build used only by the tests (g++ compiles this header with
+// GF(2^255 - 19) arithmetic for one thread, shared by the CUDA kernels and
+// a host build used only by the tests (g++ compiles this header with
 // __host__/__device__ defined away).
 //
 // Representation: ten signed 32-bit limbs in radix 2^25.5 (the ref10
 // layout): value = sum v[i] * 2^ceil(25.5 i), even limbs 26 bits, odd
 // limbs 25 bits. The TPU kernel used 20 x 13-bit limbs because the TPU has
 // no 64-bit multiply; here every limb product is one 32x32->64 multiply
-// (IMAD.WIDE) accumulated in int64, so a field multiply is 100 such
-// products plus ten multiplies by 19.
+// (IMAD.WIDE) accumulated in int64: a field multiply is 100 such products
+// plus ten multiplies by 19, a squaring 55 (the symmetric ref10 form).
 //
 // Every routine returns limbs carried to |v[i]| <= ~1.01 * 2^25 (even) /
-// 2^24 (odd), which is the input bound every routine accepts: fe_mul's
-// int64 accumulators stay below 10 * (2^27 * 19 * 2^26) < 2^61.
+// 2^24 (odd), and accepts those or the non-negative limbs of fe_frombytes
+// (< 2^26 / 2^25): fe_mul's ten terms of at most 2^27 * 19 * 2^26 and
+// fe_sq's six of at most 2^28 * 19 * 2^26 keep every int64 accumulator
+// below 2^61, the input bound of fe_reduce64.
 // fe_tobytes is exactly canonical (value in [0, p)), which the byte-exact
 // compare at the end of verification depends on.
 #pragma once
@@ -26,6 +28,16 @@
 
 #define FE_FN __host__ __device__ __forceinline__
 
+// The serial head and tail of a verify (the exponentiations, decompression,
+// ristretto decoding) run once per thread. On the card they are compiled
+// out of line, so that their many live field elements are allocated, and
+// under the kernels' register cap spilled, apart from the ladder's.
+#ifdef __CUDACC__
+#define TAIL_FN __host__ __device__ __noinline__
+#else
+#define TAIL_FN FE_FN
+#endif
+
 struct fe {
     int32_t v[10];
 };
@@ -39,45 +51,104 @@ FE_FN void fe_set_small(fe& h, int32_t x) {
     h.v[0] = x;
 }
 
-// Carry a 64-bit accumulator vector down to the limb bounds above (the
-// ref10 carry order: two interleaved chains, then the 2^255 = 19 fold).
-FE_FN void fe_reduce64(fe& out, int64_t h[10]) {
-    int64_t c;
-    c = (h[0] + (1 << 25)) >> 26; h[1] += c; h[0] -= c * (1 << 26);
-    c = (h[4] + (1 << 25)) >> 26; h[5] += c; h[4] -= c * (1 << 26);
-    c = (h[1] + (1 << 24)) >> 25; h[2] += c; h[1] -= c * (1 << 25);
-    c = (h[5] + (1 << 24)) >> 25; h[6] += c; h[5] -= c * (1 << 25);
-    c = (h[2] + (1 << 25)) >> 26; h[3] += c; h[2] -= c * (1 << 26);
-    c = (h[6] + (1 << 25)) >> 26; h[7] += c; h[6] -= c * (1 << 26);
-    c = (h[3] + (1 << 24)) >> 25; h[4] += c; h[3] -= c * (1 << 25);
-    c = (h[7] + (1 << 24)) >> 25; h[8] += c; h[7] -= c * (1 << 25);
-    c = (h[4] + (1 << 25)) >> 26; h[5] += c; h[4] -= c * (1 << 26);
-    c = (h[8] + (1 << 25)) >> 26; h[9] += c; h[8] -= c * (1 << 26);
-    c = (h[9] + (1 << 24)) >> 25; h[0] += c * 19; h[9] -= c * (1 << 25);
-    c = (h[0] + (1 << 25)) >> 26; h[1] += c; h[0] -= c * (1 << 26);
+// Carry a 64-bit accumulator vector (|h[i]| < 2^61) down to the limb
+// bounds above, in two parallel passes: every limb at once keeps its low
+// bits and passes the floor of the rest up (|carry| < 2^36, the top one
+// times 19 to limb 0), leaving |t| < 2^41; then every limb at once keeps
+// its centred low bits and passes the rest (now |carry| < 2^16) up. The
+// result: |v| <= 2^25 + 2^15 (even) / 2^24 + 2^15 (odd). Each pass is a few
+// instructions deep where ref10's carry chain is twelve steps long (on an
+// H100 the chain made the ed25519 kernel 12% slower, with 39% more SASS
+// instructions).
+FE_FN void fe_reduce64(fe& out, const int64_t h[10]) {
+    int64_t c[10], t[10];
 #pragma unroll
-    for (int i = 0; i < 10; i++) out.v[i] = (int32_t)h[i];
+    for (int i = 0; i < 10; i++) c[i] = h[i] >> fe_limb_bits(i);
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+        const int64_t low = h[i] & ((1 << fe_limb_bits(i)) - 1);
+        t[i] = low + (i == 0 ? 19 * c[9] : c[i - 1]);
+    }
+    int32_t c2[10];
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+        const int nb = fe_limb_bits(i);
+        c2[i] = (int32_t)((t[i] + (1 << (nb - 1))) >> nb);
+    }
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+        // t - c2 * 2^nb lies in [-2^(nb-1), 2^(nb-1)): exact in 32-bit wrap
+        const int32_t r = (int32_t)((uint32_t)t[i] - ((uint32_t)c2[i] << fe_limb_bits(i)));
+        out.v[i] = r + (i == 0 ? 19 * c2[9] : c2[i - 1]);
+    }
+}
+
+// One parallel carry pass over int32 limbs with |h[i]| < 2^28 (a sum of at
+// most four carried or fe_frombytes limbs): each limb keeps its centred
+// low bits and passes the rest (|c| <= 4) up, the top one times 19 to limb
+// 0. The result is carried: |v| <= 2^25 + 76 (even) / 2^24 + 4 (odd). Every
+// carry is independent, so the pass is three instructions deep where
+// fe_reduce64's chain is twelve steps long.
+FE_FN void fe_carry32(fe& out, const int32_t h[10]) {
+    int32_t c[10];
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+        const int nb = fe_limb_bits(i);
+        c[i] = (h[i] + (1 << (nb - 1))) >> nb;
+    }
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+        const int nb = fe_limb_bits(i);
+        out.v[i] = h[i] - c[i] * (1 << nb) + (i == 0 ? 19 * c[9] : c[i - 1]);
+    }
 }
 
 FE_FN void fe_add(fe& out, const fe& f, const fe& g) {
-    int64_t h[10];
+    int32_t h[10];
 #pragma unroll
-    for (int i = 0; i < 10; i++) h[i] = (int64_t)f.v[i] + g.v[i];
-    fe_reduce64(out, h);
+    for (int i = 0; i < 10; i++) h[i] = f.v[i] + g.v[i];
+    fe_carry32(out, h);
 }
 
 FE_FN void fe_sub(fe& out, const fe& f, const fe& g) {
-    int64_t h[10];
+    int32_t h[10];
 #pragma unroll
-    for (int i = 0; i < 10; i++) h[i] = (int64_t)f.v[i] - g.v[i];
-    fe_reduce64(out, h);
+    for (int i = 0; i < 10; i++) h[i] = f.v[i] - g.v[i];
+    fe_carry32(out, h);
 }
 
 FE_FN void fe_neg(fe& out, const fe& f) {
-    int64_t h[10];
+    int32_t h[10];
 #pragma unroll
-    for (int i = 0; i < 10; i++) h[i] = -(int64_t)f.v[i];
-    fe_reduce64(out, h);
+    for (int i = 0; i < 10; i++) h[i] = -f.v[i];
+    fe_carry32(out, h);
+}
+
+// a f + b g + c k for small integer coefficients (|a| + |b| + |c| <= 4),
+// carried: the linear steps of the four-thread point formulas, where each
+// thread takes its own coefficients.
+FE_FN void fe_lin3(fe& out, int a, const fe& f, int b, const fe& g, int c,
+                   const fe& k) {
+    int32_t h[10];
+#pragma unroll
+    for (int i = 0; i < 10; i++) h[i] = a * f.v[i] + b * g.v[i] + c * k.v[i];
+    fe_carry32(out, h);
+}
+
+FE_FN void fe_lin2(fe& out, int a, const fe& f, int b, const fe& g) {
+    int32_t h[10];
+#pragma unroll
+    for (int i = 0; i < 10; i++) h[i] = a * f.v[i] + b * g.v[i];
+    fe_carry32(out, h);
+}
+
+// out = (a, b, c, d)[j], limb by limb (no indexed address, so every operand
+// stays in registers).
+FE_FN void fe_select4(fe& out, int j, const fe& a, const fe& b, const fe& c,
+                      const fe& d) {
+#pragma unroll
+    for (int i = 0; i < 10; i++)
+        out.v[i] = j == 0 ? a.v[i] : j == 1 ? b.v[i] : j == 2 ? c.v[i] : d.v[i];
 }
 
 // h_k = sum_{i+j=k mod 10} f_i g_j, times 2 when i and j are both odd
@@ -106,8 +177,24 @@ FE_FN void fe_mul(fe& out, const fe& f, const fe& g) {
     fe_reduce64(out, h);
 }
 
-// Squaring is a multiply in this first version (no symmetric form).
-FE_FN void fe_sq(fe& out, const fe& f) { fe_mul(out, f, f); }
+// f^2 in 55 products: the terms f_i f_j and f_j f_i of fe_mul are taken
+// once, doubled on the side of f_i (so 4 f_i when both are odd, at most
+// 2^28) while the 19 of a wrap rides on f_j (at most 19 * 2^26 < 2^31).
+FE_FN void fe_sq(fe& out, const fe& f) {
+    int64_t h[10];
+#pragma unroll
+    for (int k = 0; k < 10; k++) h[k] = 0;
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+#pragma unroll
+        for (int j = i; j < 10; j++) {
+            const int32_t a = f.v[i] * ((i == j ? 1 : 2) * ((i & j & 1) ? 2 : 1));
+            const int32_t b = (i + j >= 10) ? 19 * f.v[j] : f.v[j];
+            h[(i + j) % 10] += (int64_t)a * b;
+        }
+    }
+    fe_reduce64(out, h);
+}
 
 FE_FN void fe_sqn(fe& out, const fe& f, int n) {
     fe t = f;
@@ -118,7 +205,7 @@ FE_FN void fe_sqn(fe& out, const fe& f, int n) {
 
 // z^(2^255 - 21) = z^-1: 254 squarings + 11 multiplies (the chain of
 // tmtpu/tpu/fe.py::invert).
-FE_FN void fe_invert(fe& out, const fe& z) {
+TAIL_FN void fe_invert(fe& out, const fe& z) {
     fe t0, t1, t2, t3;
     fe_sq(t0, z);             // 2
     fe_sqn(t1, t0, 2);        // 8
@@ -146,7 +233,7 @@ FE_FN void fe_invert(fe& out, const fe& z) {
 
 // z^((p-5)/8) = z^(2^252 - 3): 251 squarings + 11 multiplies (the chain of
 // tmtpu/tpu/fe.py::pow_p58).
-FE_FN void fe_pow22523(fe& out, const fe& z) {
+TAIL_FN void fe_pow22523(fe& out, const fe& z) {
     fe t0, t1, t2;
     fe_sq(t0, z);             // 2
     fe_sqn(t1, t0, 2);        // 8

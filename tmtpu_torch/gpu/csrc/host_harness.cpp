@@ -17,31 +17,37 @@ static void lane_bytes(const uint8_t* packed, int B, int t, int row0, uint8_t ou
     for (int k = 0; k < 32; k++) out[k] = packed[(size_t)(row0 + k) * B + t];
 }
 
-// The ed25519 kernel's per-lane verify over a packed [128, B] plane.
+// The 128 bytes of lane t (pk | r | s | h-or-k) of a packed [128, B]
+// plane, which the kernels gather into shared memory for the lane's quad.
+static void lane128(const uint8_t* packed, int B, int t, uint8_t out[128]) {
+    for (int k = 0; k < 128; k++) out[k] = packed[(size_t)k * B + t];
+}
+
+// The ed25519 kernel's per-signature verify over a packed [128, B] plane:
+// each lane runs the quad code with its four roles in lockstep (-1 where
+// the roles disagree).
 extern "C" void host_verify(const uint8_t* packed, int B, const int32_t* btab,
                             int32_t* out) {
     const ge_niels* tab = reinterpret_cast<const ge_niels*>(btab);
     for (int t = 0; t < B; t++) {
-        uint8_t pk[32], r[32], s[32], h[32];
-        lane_bytes(packed, B, t, 0, pk);
-        lane_bytes(packed, B, t, 32, r);
-        lane_bytes(packed, B, t, 64, s);
-        lane_bytes(packed, B, t, 96, h);
-        out[t] = ed25519_verify_lane(pk, r, s, h, tab);
+        uint8_t lane[128];
+        lane128(packed, B, t, lane);
+        quad q;
+        quad_table qt;
+        out[t] = ed25519_verify_quad(q, lane, tab, qt);
     }
 }
 
-// The sr25519 kernel's per-lane verify over a packed [128, B] plane.
+// The sr25519 kernel's per-signature verify, the same way.
 extern "C" void host_sr_verify(const uint8_t* packed, int B, const int32_t* btab,
                                int32_t* out) {
     const ge_niels* tab = reinterpret_cast<const ge_niels*>(btab);
     for (int t = 0; t < B; t++) {
-        uint8_t pk[32], r[32], s[32], k[32];
-        lane_bytes(packed, B, t, 0, pk);
-        lane_bytes(packed, B, t, 32, r);
-        lane_bytes(packed, B, t, 64, s);
-        lane_bytes(packed, B, t, 96, k);
-        out[t] = sr25519_verify_lane(pk, r, s, k, tab);
+        uint8_t lane[128];
+        lane128(packed, B, t, lane);
+        quad q;
+        quad_table qt;
+        out[t] = sr25519_verify_quad(q, lane, tab, qt);
     }
 }
 
@@ -74,7 +80,8 @@ extern "C" void host_k1_verify(const uint8_t* packed, int B, const uint32_t* gta
 
 // One field op on n pairs of 32-byte little-endian inputs (255 bits used),
 // written as canonical 32-byte encodings:
-// 0 mul, 1 add, 2 sub, 3 neg, 4 invert, 5 pow22523, 6 freeze (a alone).
+// 0 mul, 1 add, 2 sub, 3 neg, 4 invert, 5 pow22523, 6 freeze (a alone),
+// 7 sq, 8 sq of a - b (the signed limbs fe_sub leaves).
 extern "C" void host_fe(int op, const uint8_t* a, const uint8_t* b, uint8_t* out,
                         int n) {
     for (int i = 0; i < n; i++) {
@@ -88,7 +95,29 @@ extern "C" void host_fe(int op, const uint8_t* a, const uint8_t* b, uint8_t* out
             case 3: fe_neg(z, x); break;
             case 4: fe_invert(z, x); break;
             case 5: fe_pow22523(z, x); break;
+            case 7: fe_sq(z, x); break;
+            case 8: fe_sub(z, x, y); fe_sq(z, z); break;
             default: z = x; break;
+        }
+        fe_tobytes(out + 32 * i, z);
+    }
+}
+
+// fe_mul (op 0) or fe_sq (op 1) of n raw limb vectors a[10 i..] (and
+// b[10 i..]) as given, loose limbs included, written as canonical 32-byte
+// encodings.
+extern "C" void host_fe_limbs(int op, const int32_t* a, const int32_t* b, uint8_t* out,
+                              int n) {
+    for (int i = 0; i < n; i++) {
+        fe x, y, z;
+        for (int k = 0; k < 10; k++) {
+            x.v[k] = a[10 * i + k];
+            y.v[k] = b[10 * i + k];
+        }
+        if (op == 0) {
+            fe_mul(z, x, y);
+        } else {
+            fe_sq(z, x);
         }
         fe_tobytes(out + 32 * i, z);
     }

@@ -1,7 +1,7 @@
-// ristretto255 decoding and coset equality, and the per-lane sr25519
-// verify, on the edwards25519 field and curve code of fe25519.cuh and
-// ge25519.cuh. Shared by the CUDA kernel (sr25519_verify.cu) and the host
-// build the tests use.
+// ristretto255 decoding and coset equality, and the per-signature sr25519
+// verify by a quad of four threads, on the edwards25519 field and curve
+// code of fe25519.cuh and ge25519.cuh. Shared by the CUDA kernel
+// (sr25519_verify.cu) and the host build the tests use.
 //
 // Semantics are those of tmtpu/tpu/kernel.py::_sr_verify_body and its plain
 // twin tmtpu/tpu/sr_verify.py (draft-irtf-cfrg-ristretto255 DECODE):
@@ -53,7 +53,7 @@ RIST_FN void fe_abs(fe& out, const fe& x) {
 
 // SQRT_RATIO_M1(1, w): r = |1/sqrt(w)| when w is a non-zero square.
 // Returns was_square.
-RIST_FN bool fe_invsqrt(fe& out, const fe& w) {
+TAIL_FN bool fe_invsqrt(fe& out, const fe& w) {
     fe t, w3, w7, r, check, one, minus_one, sqrtm1, minus_sqrtm1;
     fe_sq(t, w);
     fe_mul(w3, t, w);
@@ -79,7 +79,7 @@ RIST_FN bool fe_invsqrt(fe& out, const fe& w) {
 // DECODE of a 32-byte encoding (value < p and even, host-checked) into an
 // extended point (x, y, 1, x*y). Returns valid; an invalid lane holds a
 // finite point that the complete formulas never fault on.
-RIST_FN bool ristretto_decode(ge_p3& out, const uint8_t enc[32]) {
+TAIL_FN bool ristretto_decode(ge_p3& out, const uint8_t enc[32]) {
     fe s, one, d, ss, u1, u2, u2_sqr, v, t, invsqrt, den_x, den_y, x, y;
     fe_frombytes(s, enc);
     fe_set_small(one, 1);
@@ -108,31 +108,52 @@ RIST_FN bool ristretto_decode(ge_p3& out, const uint8_t enc[32]) {
     return ok && !fe_is_odd(out.T) && !fe_is_zero(y);
 }
 
-// Coset equality of two extended points (any Z): x1 y2 == y1 x2 or
-// x1 x2 == y1 y2.
-RIST_FN bool ristretto_equal(const ge_p3& p, const ge_p3& q) {
+// Coset equality of two points given by X and Y (any common Z each):
+// x1 y2 == y1 x2 or x1 x2 == y1 y2.
+RIST_FN bool ristretto_equal(const fe& x1, const fe& y1, const fe& x2, const fe& y2) {
     fe a, b, t;
-    fe_mul(a, p.X, q.Y);
-    fe_mul(t, p.Y, q.X);
+    fe_mul(a, x1, y2);
+    fe_mul(t, y1, x2);
     fe_sub(a, a, t);
-    fe_mul(b, p.X, q.X);
-    fe_mul(t, p.Y, q.Y);
+    fe_mul(b, x1, x2);
+    fe_mul(t, y1, y2);
     fe_sub(b, b, t);
     return fe_is_zero(a) || fe_is_zero(b);
 }
 
-// The whole per-lane sr25519 verify of tmtpu/tpu/kernel.py::_sr_verify_body:
-// decode A and R, run the ladder [s]B + [k](-A) shared with ed25519, and
-// compare the result with R by coset equality. s (marker cleared) and k
-// are 32-byte little-endian scalars below L; btab is the niels table of
+// The whole per-signature sr25519 verify of
+// tmtpu/tpu/kernel.py::_sr_verify_body, by one quad: roles 0 and 1 decode
+// A while roles 2 and 3 decode R, at once; one exchange gives roles 2 and 3
+// A's Z and T, and every role keeps its coordinate of -A; the ladder
+// [s]B + [k](-A) shared with ed25519; then every role compares the result
+// with R by coset equality. lane is the signature's 128 bytes (pk | r | s
+// with the marker cleared | k), s and k below L; btab is the niels table of
 // d*B for d in 0..15. Returns 1 when the signature verifies.
-RIST_FN int sr25519_verify_lane(const uint8_t pk[32], const uint8_t r[32],
-                                const uint8_t s[32], const uint8_t k[32],
-                                const ge_niels* btab) {
-    ge_p3 a, rp, res;
-    const bool a_ok = ristretto_decode(a, pk);
-    const bool r_ok = ristretto_decode(rp, r);
-    ge_negate(a, a);
-    ge_double_scalar(res, s, k, a, btab);
-    return (a_ok && r_ok && ristretto_equal(res, rp)) ? 1 : 0;
+QUAD_FN int sr25519_verify_quad(const quad& q, const uint8_t lane[128],
+                                const ge_niels* btab, quad_table& tab) {
+    qv<fe> own, other, a, p, x1, y1, x2, y2;
+    qv<int> ok, a_ok, r_ok, v;
+    QUAD_EACH(q, j) {
+        ge_p3 pt;
+        ok[j] = ristretto_decode(pt, j < 2 ? lane : lane + 32) ? 1 : 0;
+        ge_coord(own[j], pt, j);
+        ge_coord(other[j], pt, j ^ 2);  // A's Z, T on roles 0, 1; R's X, Y on 2, 3
+    }
+    quad_xchg(q, a, other, 0, 1, 0, 1);
+    QUAD_EACH(q, j) {
+        if (j < 2) a[j] = own[j];
+        if (j == 0 || j == 3) fe_neg(a[j], a[j]);
+    }
+    ge4_double_scalar(q, p, lane + 64, lane + 96, a, btab, tab);
+
+    quad_xchg(q, a_ok, ok, 0, 0, 0, 0);
+    quad_xchg(q, r_ok, ok, 2, 2, 2, 2);
+    quad_xchg(q, x1, p, 0, 0, 0, 0);
+    quad_xchg(q, y1, p, 1, 1, 1, 1);
+    quad_xchg(q, x2, other, 2, 2, 2, 2);
+    quad_xchg(q, y2, other, 3, 3, 3, 3);
+    QUAD_EACH(q, j) {
+        v[j] = (a_ok[j] && r_ok[j] && ristretto_equal(x1[j], y1[j], x2[j], y2[j])) ? 1 : 0;
+    }
+    return quad_result(v);
 }

@@ -1,5 +1,5 @@
-// Batched sr25519 (schnorrkel) verification on Hopper (sm_90a): one thread
-// per lane.
+// Batched sr25519 (schnorrkel) verification on Hopper (sm_90a): four
+// threads (a quad) per signature.
 //
 // Replaces the Pallas TPU kernel tmtpu/tpu/kernel.py::_sr_verify_kernel
 // (launched by _sr_verify_pallas_jit / sr_verify_compact_kernel) and
@@ -10,16 +10,12 @@
 // and R, and computed the merlin challenge k.
 //
 // Input: the packed [128, B] uint8 plane (pk | r | s | k rows, lanes on the
-// trailing axis), so thread t reads byte k of a plane at k*B + t. Any B:
-// the grid covers ceil(B / 64) blocks and the ragged edge is masked.
-// Output: int32 [B], 1 where the lane verifies.
-//
-// Tables: the fixed-base niels table of d*B (the ed25519 kernel's, 1,920
-// bytes) is copied into shared memory once per block; the per-lane cached
-// table of d*(-A) (2,560 bytes) lives in thread-local memory.
+// trailing axis). Any B: the grid covers ceil(B / (threads / 4)) blocks and
+// the ragged edge is masked (verify_quad.cuh). Output: int32 [B], 1 where
+// the lane verifies.
 //
 // Bound on an H100 SXM: integer multiplies. The reference's algorithm
-// needs per lane two ristretto decodes (about 22 multiplies M and 256
+// needs per lane two ristretto decodes (about 24 multiplies M and 257
 // squarings S each), the table of d*(-A) (99M + 28S), 63 windows of four
 // doublings (13M + 16S), 8M for each non-zero digit of k and 6M for each
 // non-zero digit of s, and 4M of coset equality: about 1,800M + 1,550S
@@ -27,49 +23,40 @@
 // 32x32->64 products per M and 55 per S (ten radix-2^25.5 limbs) that is
 // about 266,000 products per lane; at 64 integer multiply-adds per SM per
 // clock, 132 SMs at 1.98 GHz (16.7e12 per second), 10,000 lanes cannot take
-// less than ~0.16 ms. The 132 bytes a lane moves are noise. This first
-// version does what the ed25519 kernel does about that bound, one thread
-// per lane and nothing more; the mixed vote set gives it only 500 lanes.
+// less than ~0.16 ms. The 132 bytes a lane moves are noise.
+//
+// Design: the ed25519 kernel's (quads, the four-way ladder of ge25519.cuh,
+// a dedicated squaring, parallel carries, the per-lane table in shared
+// memory), with roles 0 and 1 decoding A while roles 2 and 3 decode R, so
+// that each thread runs one decode (24M + 257S), not two in a row. Per
+// thread, for random scalars: one decode, the table (43M), the ladder
+// (256M + 256S and ~240M of additions) and coset equality (4M): about
+// 570M + 515S, ~85,000 products. The mixed vote set gives this kernel 500
+// lanes: 2,000 threads, which 64-thread blocks spread over 32 SMs. ptxas:
+// 168 registers, 92 B spilled in one out-of-line decode function.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fe25519.cuh"
 #include "ge25519.cuh"
 #include "ristretto255.cuh"
+#include "verify_quad.cuh"
 
-#define SR_VERIFY_THREADS 64
+#define SR25519_THREADS 64
 
-__global__ void __launch_bounds__(SR_VERIFY_THREADS)
-sr25519_verify_kernel(const uint8_t* __restrict__ packed, int B,
-                      const int32_t* __restrict__ btab,
-                      int32_t* __restrict__ out) {
-    __shared__ ge_niels s_btab[16];
-    int32_t* s_flat = reinterpret_cast<int32_t*>(s_btab);
-    for (int i = threadIdx.x; i < 16 * 3 * 10; i += blockDim.x) s_flat[i] = btab[i];
-    __syncthreads();
-
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= B) return;
-    uint8_t pk[32], r[32], s[32], k[32];
-#pragma unroll
-    for (int j = 0; j < 32; j++) {
-        pk[j] = packed[(size_t)j * B + t];
-        r[j] = packed[(size_t)(32 + j) * B + t];
-        s[j] = packed[(size_t)(64 + j) * B + t];
-        k[j] = packed[(size_t)(96 + j) * B + t];
+struct Sr25519Quad {
+    __device__ __forceinline__ int operator()(const quad& q, const uint8_t* lane,
+                                              const ge_niels* btab, quad_table& tab) const {
+        return sr25519_verify_quad(q, lane, btab, tab);
     }
-    out[t] = sr25519_verify_lane(pk, r, s, k, s_btab);
-}
+};
 
 // Plain C entry for ctypes. Launches on ``stream`` and returns
 // cudaGetLastError() (0 when the launch was accepted).
 extern "C" int sr25519_verify_launch(const void* packed, int B, const void* btab,
                                      void* out, void* stream) {
-    if (B <= 0) return 0;
-    const int blocks = (B + SR_VERIFY_THREADS - 1) / SR_VERIFY_THREADS;
-    sr25519_verify_kernel<<<blocks, SR_VERIFY_THREADS, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint8_t*>(packed), B, static_cast<const int32_t*>(btab),
-        static_cast<int32_t*>(out));
-    return (int)cudaGetLastError();
+    return quad_verify_launch<Sr25519Quad>(packed, B, btab, out, stream, SR25519_THREADS);
 }
+
+// The dynamic shared memory a launch gives each block, in bytes.
+extern "C" int sr25519_verify_smem_bytes(void) { return (int)quad_smem_bytes(SR25519_THREADS); }

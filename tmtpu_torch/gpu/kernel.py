@@ -70,14 +70,15 @@ def check_packed(packed: torch.Tensor, rows: int) -> None:
         raise ValueError(f"unsupported device {packed.device}")
 
 
-def launch(name: str, packed: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/<name>.cu`` over a checked CUDA plane with its table on
-    the current stream, through ``<name>_launch(packed, B, table, out,
-    stream)``; B > 0. Returns the int32 [B] verdicts; raises if the launch
-    was refused."""
+def launch(name: str, packed: torch.Tensor, table: torch.Tensor,
+           lib: ctypes.CDLL = None) -> torch.Tensor:
+    """Launch ``csrc/<name>.cu`` (or the same entry of another build,
+    ``lib``) over a checked CUDA plane with its table on the current
+    stream, through ``<name>_launch(packed, B, table, out, stream)``; B > 0.
+    Returns the int32 [B] verdicts; raises if the launch was refused."""
     B = packed.shape[1]
     out = torch.empty(B, dtype=torch.int32, device=packed.device)
-    fn = getattr(build.load(name), f"{name}_launch")
+    fn = getattr(build.load(name) if lib is None else lib, f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
