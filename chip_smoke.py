@@ -16,10 +16,10 @@ Drives the port's two main paths once each, as a validator would, through
 Each path runs with every launch counter set to 0 just before it and read
 just after. Then each kernel is held against its plain PyTorch version on
 the same planes at each width its paths give it, at 10,000 lanes, at 1, 3,
-5 and 33 lanes (the ragged edge of the ed25519 and sr25519 kernels' blocks
-of four-thread quads) and on an adversarial block, samples are
-checked against the pure-Python oracles, and the kernels, the plain
-versions, host prep and both paths end to end are timed.
+5 and 33 lanes (the ragged edge of the kernels' blocks of four-thread
+quads) and on an adversarial block, samples are checked against the
+pure-Python oracles, and the kernels, the plain versions, host prep and
+both paths end to end are timed.
 
 Usage: ``python3 chip_smoke.py``. Needs one CUDA card; exits non-zero
 without one, and on any failed check. Prints a ``{"kernels": [...]}`` line,
@@ -103,10 +103,6 @@ K1_FIXED_MS = (63 * 4 * 6 + 14 * 12 + 14 + 2, 63 * 4 * 2 + 255)
 K1_ADD_M = 12
 K1_PRODUCTS_PER_M, K1_PRODUCTS_PER_S = 64, 36
 
-# The ed25519 and sr25519 kernels run a quad of four threads per signature
-# with dynamic shared memory, which ptxas does not see; each library reports
-# its own size through <name>_smem_bytes (csrc/verify_quad.cuh).
-QUAD_KERNELS = ("ed25519_verify", "sr25519_verify")
 RAGGED = (1, 3, 5, 33)
 
 N_SR, N_K1 = 500, 500
@@ -403,11 +399,11 @@ def main() -> int:
     logs = build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
-        line = f"ptxas {name}: {ptxas_summary(log)}"
-        if name in QUAD_KERNELS:
-            smem = getattr(build.load(name), f"{name}_smem_bytes")()
-            line += f"; dynamic shared {smem} B a block"
-        print(line)
+        # every kernel runs quads of four threads a signature with dynamic
+        # shared memory, which ptxas does not see; each library reports its
+        # own size (csrc/verify_quad.cuh)
+        smem = getattr(build.load(name), f"{name}_smem_bytes")()
+        print(f"ptxas {name}: {ptxas_summary(log)}; dynamic shared {smem} B a block")
 
     # 3. sign every key's vote: 10,000 ed25519, 500 sr25519, 500 secp256k1
     t0 = time.perf_counter()

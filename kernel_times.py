@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the ed25519 and sr25519 verify kernels on one CUDA card: this
-tree's kernels against another tree's (an earlier commit unpacked with
+"""Time the ed25519, sr25519 and secp256k1 verify kernels on one CUDA card:
+this tree's kernels against another tree's (an earlier commit unpacked with
 ``git archive``), in turns on the same planes.
 
 Usage::
@@ -10,15 +10,17 @@ Usage::
 ``DIR`` holds the other tree (its ``tmtpu_torch/gpu/csrc``); ``build.build_all``
 builds its kernels with this tree's nvcc flags into
 ``tmtpu_torch/gpu/build/parent/``. This tree's kernels run through the
-wrappers ``kernel.verify_packed`` / ``kernel.sr_verify_packed``, the other
-tree's through the same ``kernel.launch`` with its library. The planes are
-signed votes (a few hundred distinct lanes per curve, tiled to each width),
-at the widths the main paths give the kernels: ed25519 at 10,000 and 9,000
-lanes, sr25519 at 10,000 and 500. Each time is the median of 20 CUDA-event
-readings after 3 warm-up launches, taken in turns (parent, new, new,
-parent) at each width. Both trees' verdicts must agree bit for bit at every
-width, at 1, 3, 5 and 33 lanes and on the adversarial blocks of
-``tests/torch_corpus.py``. Needs a CUDA card; exits non-zero without one.
+wrappers ``kernel.verify_packed`` / ``kernel.sr_verify_packed`` /
+``k1_kernel.verify_packed``, the other tree's through the same
+``kernel.launch`` with its library and the same fixed-base table. The
+planes are signed votes (a few hundred distinct lanes per curve, tiled to
+each width), at the widths the main paths give the kernels: ed25519 at
+10,000 and 9,000 lanes, sr25519 and secp256k1 at 10,000 and 500. Each
+time is the median of 20 CUDA-event readings after 3 warm-up launches,
+taken in turns (parent, new, new, parent) at each width. Both trees'
+verdicts must agree bit for bit at every width, at 1, 3, 5 and 33 lanes
+and on the adversarial and edge blocks of ``tests/torch_corpus.py``.
+Needs a CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -35,12 +37,18 @@ import torch
 
 from chip_smoke import ptxas_summary, smi_line
 from tests import torch_corpus as corpus
-from tmtpu_torch.gpu import build, kernel
+from tmtpu_torch.gpu import build, k1_kernel, kernel
+from tmtpu_torch.gpu import k1_verify as kv
 from tmtpu_torch.gpu import sr_verify as sv
 from tmtpu_torch.gpu import verify as tv
 
-WRAPPERS = {"ed25519_verify": kernel.verify_packed, "sr25519_verify": kernel.sr_verify_packed}
-WIDTHS = {"ed25519_verify": (10_000, 9_000), "sr25519_verify": (10_000, 500)}
+WRAPPERS = {"ed25519_verify": kernel.verify_packed, "sr25519_verify": kernel.sr_verify_packed,
+            "k1_verify": k1_kernel.verify_packed}
+# Each kernel's fixed-base table on a device, as its wrapper passes it.
+TABLES = {"ed25519_verify": kernel._device_table, "sr25519_verify": kernel._device_table,
+          "k1_verify": k1_kernel._device_table}
+WIDTHS = {"ed25519_verify": (10_000, 9_000), "sr25519_verify": (10_000, 500),
+          "k1_verify": (10_000, 500)}
 RAGGED = (1, 3, 5, 33)
 DISTINCT = 256
 # Edge blocks on which both trees' verdicts (host-masked lanes included)
@@ -49,6 +57,8 @@ ADVERSARIAL = {
     "ed25519_verify": [(corpus.adversarial, tv.prepare_batch_packed),
                        (corpus.low_order, tv.prepare_batch_packed)],
     "sr25519_verify": [(corpus.sr_adversarial, sv.prepare_sr_batch_packed)],
+    "k1_verify": [(corpus.k1_adversarial, kv.prepare_k1_batch_packed),
+                  (corpus.k1_edges, kv.prepare_k1_batch_packed)],
 }
 
 
@@ -56,7 +66,7 @@ def parent_runner(lib: ctypes.CDLL, name: str):
     """The other tree's kernel as a function plane -> bool verdicts, through
     the wrappers' own launch."""
     def run(packed: torch.Tensor) -> torch.Tensor:
-        return kernel.launch(name, packed, kernel._device_table(packed.device), lib) != 0
+        return kernel.launch(name, packed, TABLES[name](packed.device), lib) != 0
     return run
 
 
@@ -84,7 +94,10 @@ def planes() -> dict:
     pks, msgs, sigs = corpus.sr_signed(DISTINCT, 92)
     sr, ok = sv.prepare_sr_batch_packed(pks, msgs, sigs)
     assert ok.all()
-    return {"ed25519_verify": ed, "sr25519_verify": sr}
+    pks, msgs, sigs = corpus.k1_signed(DISTINCT, 93)
+    k1, ok = kv.prepare_k1_batch_packed(pks, msgs, sigs)
+    assert ok.all()
+    return {"ed25519_verify": ed, "sr25519_verify": sr, "k1_verify": k1}
 
 
 def tiled(plane: np.ndarray, n: int) -> torch.Tensor:

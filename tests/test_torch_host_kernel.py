@@ -4,9 +4,9 @@ fe_secp256k1.cuh, ge_secp256k1.cuh) with the test harness
 csrc/host_harness.cpp into a temporary shared library. The field ops of
 both fields are held against Python integers, and the per-lane verifies of
 the three kernels, the very functions each kernel thread runs, against the
-oracles and the plain PyTorch masks. The ed25519 and sr25519 kernels verify
-a signature with a quad of four threads; the host build runs the same quad
-code with the four roles in lockstep and reports -1 where they disagree.
+oracles and the plain PyTorch masks. The three kernels verify a signature
+with a quad of four threads; the host build runs the same quad code with
+the four roles in lockstep and reports -1 where they disagree.
 This host build serves the tests only."""
 
 import ctypes
@@ -190,11 +190,49 @@ K1_P = 2**256 - 2**32 - 977
 
 
 def _k1_field_inputs():
+    """Values below 2^256 at the edges of secp256k1's field (0, p and its
+    neighbours, 2^256 - 1, the fold constant 2^32 + 977, single words) and
+    200 random ones: every one is a valid input to the kernel's field code."""
     rng = np.random.default_rng(18)
     edge = [0, 1, 2, 7, K1_P - 1, K1_P, K1_P + 1, 2**256 - 1, 2**256 - 2,
             2**256 - 2**32 - 978, 2**32 + 977, 2**32 + 976, 2**255, 2**224,
             (K1_P + 1) // 2, 2**32 - 1, 2**64 - 1]
     return edge + [int.from_bytes(rng.bytes(32), "big") for _ in range(200)]
+
+
+def _k1_unreduced_inputs():
+    """Values in [p, 2^256), unreduced but valid field inputs: p, the top
+    two, the middle, and 200 random ones."""
+    rng = np.random.default_rng(29)
+    span = 2**256 - K1_P
+    vals = [K1_P, 2**256 - 1, 2**256 - 2, K1_P + span // 2]
+    return vals + [K1_P + int(rng.integers(0, span, dtype=np.uint64)) for _ in range(200)]
+
+
+def _k1_rare_carry_pairs():
+    """(a, b) pairs that drive the field code's rare carries (a fold carrying
+    out of word 2, a borrow out of word 1 or 2, and either going on out of
+    bit 256) in add, sub, times 21, mul, sq and the signed 21 a - 63 b."""
+    fold = 2**32 + 977
+    # H * fold = -1 mod 2^96: a * b = H' 2^256 + (2^256 - 2^128), whose
+    # reduction leaves 2^96 - 1 in the low words before the last fold
+    h = ((2**96 - 1) * pow(fold, -1, 2**96)) % 2**96 + 2**96
+    # 21 a - 63 b = 16 - 2^256: a borrow out of bit 256 in the signed fold
+    k = (2**256 - 16) // 21
+    x21 = -(-(2**256 + 2**96 - fold) // 21)
+    return [
+        (2**256 - 1, 2**96 - 2**32 - 976),  # add: out of word 2 only
+        (2**256 - 1, 2**256 - 1),  # add, times 21, mul, sq: out of bit 256
+        (2**100, 2**200),  # sub: out of word 1 only
+        (0, 2**256 - 1),  # sub: out of bit 256
+        (5, 2**256 - 2**32),  # sub: out of bit 256
+        (2**128, (h << 128) | (2**128 - 1)),  # mul: out of word 2 only
+        (x21, 1),  # times 21: out of word 2 only
+        (x21, 0),  # 21 a - 63 b: a carry out of word 2 only
+        (2**256 - 1, 0),  # 21 a - 63 b: a carry out of bit 256
+        (0, 2**96),  # 21 a - 63 b: a borrow out of word 2 only
+        (3 * -(-k // 3) - k, -(-k // 3)),  # 21 a - 63 b: out of bit 256
+    ]
 
 
 K1_FIELD_OPS = {
@@ -206,6 +244,7 @@ K1_FIELD_OPS = {
     5: ("times21", lambda a, b: 21 * a % K1_P),
     6: ("sqrt_candidate", lambda a, b: pow(a, (K1_P + 1) // 4, K1_P)),
     7: ("freeze", lambda a, b: a % K1_P),
+    8: ("lin", lambda a, b: (21 * a - 63 * b) % K1_P),
 }
 
 
@@ -224,6 +263,37 @@ def test_k1_field_op_against_python_ints(harness, op):
     for i in range(n):
         got = int.from_bytes(out.raw[32 * i : 32 * i + 32], "big")
         assert got == f(a[i], b[i]), (K1_FIELD_OPS[op][0], a[i], b[i])
+
+
+@pytest.mark.parametrize("op", [0, 4], ids=["mul", "sq"])
+def test_k1_mul_and_sq_on_unreduced_inputs(harness, op):
+    """fe8_mul and the dedicated fe8_sq on inputs in [p, 2^256), which every
+    routine accepts: the top of that range makes the product's high half
+    nearly 2^256, so the reduction's carry word takes 33 bits."""
+    a = _k1_unreduced_inputs()
+    b = a[::-1]
+    n = len(a)
+    out = ctypes.create_string_buffer(32 * n)
+    harness.host_fe8(op, b"".join(int.to_bytes(v, 32, "big") for v in a),
+                     b"".join(int.to_bytes(v, 32, "big") for v in b), out, n)
+    for i in range(n):
+        want = a[i] * (b[i] if op == 0 else a[i]) % K1_P
+        assert int.from_bytes(out.raw[32 * i : 32 * i + 32], "big") == want, (a[i], b[i])
+
+
+@pytest.mark.parametrize("op", [0, 1, 2, 4, 5, 8],
+                         ids=["mul", "add", "sub", "sq", "times21", "lin"])
+def test_k1_field_op_on_rare_carries(harness, op):
+    """The folds' rare tails: a carry out of word 2 or a borrow out of word
+    1, going on out of bit 256 or not, which random inputs never reach."""
+    pairs = _k1_rare_carry_pairs()
+    n = len(pairs)
+    out = ctypes.create_string_buffer(32 * n)
+    harness.host_fe8(op, b"".join(int.to_bytes(a, 32, "big") for a, _ in pairs),
+                     b"".join(int.to_bytes(b, 32, "big") for _, b in pairs), out, n)
+    f = K1_FIELD_OPS[op][1]
+    for i, (a, b) in enumerate(pairs):
+        assert int.from_bytes(out.raw[32 * i : 32 * i + 32], "big") == f(a, b), (a, b)
 
 
 def test_ristretto_decode_against_oracle(harness):
@@ -260,11 +330,11 @@ def _host_new(lib, curve, packed):
         table = kernel.base_table_limbs()
         lib.host_sr_verify(packed.ctypes.data, packed.shape[1], table.ctypes.data,
                            out.ctypes.data)
-        assert (out >= 0).all(), "the quad's roles disagree"
     else:
         table = k1_kernel.base_table_words()
         lib.host_k1_verify(packed.ctypes.data, packed.shape[1], table.ctypes.data,
                            out.ctypes.data)
+    assert (out >= 0).all(), "the quad's roles disagree"
     return out != 0
 
 

@@ -49,7 +49,7 @@
 
 #define ED25519_THREADS 64
 
-struct Ed25519Quad {
+struct Ed25519Quad : EdwardsQuadLayout {
     __device__ __forceinline__ int operator()(const quad& q, const uint8_t* lane,
                                               const ge_niels* btab, quad_table& tab) const {
         return ed25519_verify_quad(q, lane, btab, tab);
@@ -64,4 +64,6 @@ extern "C" int ed25519_verify_launch(const void* packed, int B, const void* btab
 }
 
 // The dynamic shared memory a launch gives each block, in bytes.
-extern "C" int ed25519_verify_smem_bytes(void) { return (int)quad_smem_bytes(ED25519_THREADS); }
+extern "C" int ed25519_verify_smem_bytes(void) {
+    return (int)quad_smem_bytes<Ed25519Quad>(ED25519_THREADS);
+}

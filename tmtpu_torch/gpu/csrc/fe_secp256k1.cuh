@@ -6,10 +6,13 @@
 // value below 2^256 (so a value in [p, 2^256) is a valid input to every
 // routine; only fe8_freeze makes it canonical). The TPU kernel used twenty
 // 13-bit limbs with non-uniform loose bounds because the TPU has no 64-bit
-// multiply; here a product is 64 32x32->64 multiplies (IMAD.WIDE)
-// accumulated row by row with exact carries into a 512-bit result, which
-// then folds through 2^256 = 2^32 + 977 (mod p) twice. Every routine keeps
-// the value below 2^256 by folding each carry out of bit 256 back in.
+// multiply; here a product is 64 32x32 products accumulated with exact
+// carries into a 512-bit result, which folds through 2^256 = 2^32 + 977
+// (mod p). Full words leave no headroom for lazy carries, so every routine
+// folds its carry out of bit 256 back in at once; the fold touches words
+// 0-2, and only when it carries on out of word 2 (word 2 within a few of
+// 2^32: about once in 2^30 products, far more rarely after a sum) does an
+// out-of-line path carry it through the rest.
 #pragma once
 
 #include <stdint.h>
@@ -71,9 +74,58 @@ K1_FN uint32_t fe8_unfold(fe8& r, uint32_t c) {
     return br;
 }
 
-// a + b: a carry out of bit 256 folds back as 2^32 + 977; a second fold
-// covers the case where that addition carries too (then the value is tiny
-// and a third cannot).
+// The rare tails of the folds, out of line on the card so that the hot
+// path keeps only a test and a branch that is almost never taken.
+#ifdef __CUDACC__
+#define K1_RARE_FN __host__ __device__ __noinline__
+#else
+#define K1_RARE_FN K1_FN
+#endif
+
+// r + 2^(32k), carried through; a carry out of bit 256 folds back once
+// (the words it leaves are then small, so it cannot carry again). By
+// value, so that no caller's element has to live in memory.
+K1_RARE_FN fe8 fe8_carry_rare(fe8 r, int k) {
+    uint64_t x = 1;
+#pragma unroll 1
+    for (int i = k; i < 8; i++) {
+        x += r.v[i];
+        r.v[i] = (uint32_t)x;
+        x >>= 32;
+    }
+    if (x) fe8_fold(r, 1);
+    return r;
+}
+
+// r - 2^(32k), borrowed through; a borrow out of bit 256 unfolds once more
+// (the value is then near 2^256, so it cannot borrow again).
+K1_RARE_FN fe8 fe8_borrow_rare(fe8 r, int k) {
+    uint32_t br = 1;
+#pragma unroll 1
+    for (int i = k; i < 8; i++) {
+        const uint64_t d = (uint64_t)r.v[i] - br;
+        r.v[i] = (uint32_t)d;
+        br = (uint32_t)(d >> 63);
+    }
+    if (br) fe8_unfold(r, 1);
+    return r;
+}
+
+// r += c * (2^32 + 977) for c < 2^34: c * 977 into words 0-1, c into words
+// 1-2; a carry out of word 2 goes on through fe8_carry_rare.
+K1_FN void fe8_fold_fast(fe8& r, uint64_t c) {
+    const uint32_t cl = (uint32_t)c, ch = (uint32_t)(c >> 32);
+    const uint64_t m = (uint64_t)cl * 977u;
+    uint64_t x = (uint64_t)r.v[0] + (uint32_t)m;
+    r.v[0] = (uint32_t)x;
+    x = (x >> 32) + r.v[1] + (m >> 32) + cl + (uint64_t)ch * 977u;
+    r.v[1] = (uint32_t)x;
+    x = (x >> 32) + r.v[2] + ch;
+    r.v[2] = (uint32_t)x;
+    if (x >> 32) r = fe8_carry_rare(r, 3);
+}
+
+// a + b: the carry out of bit 256 folds back as 2^32 + 977.
 K1_FN void fe8_add(fe8& r, const fe8& a, const fe8& b) {
     uint64_t x = 0;
 #pragma unroll
@@ -82,11 +134,12 @@ K1_FN void fe8_add(fe8& r, const fe8& a, const fe8& b) {
         r.v[i] = (uint32_t)x;
         x >>= 32;
     }
-    fe8_fold(r, fe8_fold(r, x));
+    fe8_fold_fast(r, (uint32_t)x);
 }
 
 // a - b: a borrow out of bit 256 means 2^256 was added, so 2^32 + 977 is
-// taken off, twice at most.
+// taken off (words 0-1; a borrow out of word 1 goes on through
+// fe8_borrow_rare).
 K1_FN void fe8_sub(fe8& r, const fe8& a, const fe8& b) {
     uint32_t br = 0;
 #pragma unroll
@@ -95,7 +148,39 @@ K1_FN void fe8_sub(fe8& r, const fe8& a, const fe8& b) {
         r.v[i] = (uint32_t)d;
         br = (uint32_t)(d >> 63);
     }
-    fe8_unfold(r, fe8_unfold(r, br));
+    uint64_t d = (uint64_t)r.v[0] - br * 977u;
+    r.v[0] = (uint32_t)d;
+    d = (uint64_t)r.v[1] - br - (uint32_t)(d >> 63);
+    r.v[1] = (uint32_t)d;
+    if (d >> 63) r = fe8_borrow_rare(r, 2);
+}
+
+// r += c * (2^32 + 977) for a signed |c| < 2^31: words 0-2, and a carry
+// or borrow out of word 2 goes on through the rare tails.
+K1_FN void fe8_fold_signed(fe8& r, int64_t c) {
+    int64_t x = (int64_t)r.v[0] + c * 977;
+    r.v[0] = (uint32_t)x;
+    x = (x >> 32) + (int64_t)r.v[1] + c;
+    r.v[1] = (uint32_t)x;
+    x = (x >> 32) + (int64_t)r.v[2];
+    r.v[2] = (uint32_t)x;
+    x >>= 32;
+    if (x) r = x > 0 ? fe8_carry_rare(r, 3) : fe8_borrow_rare(r, 3);
+}
+
+// ka a + kb b + kc c for small signed constants (|k| <= 63): one signed
+// carry pass, then one signed fold, in place of a chain of adds, subs and
+// small multiples that would each fold.
+K1_FN void fe8_lin(fe8& r, int ka, const fe8& a, int kb, const fe8& b, int kc,
+                   const fe8& c) {
+    int64_t x = 0;
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+        x += (int64_t)ka * a.v[i] + (int64_t)kb * b.v[i] + (int64_t)kc * c.v[i];
+        r.v[i] = (uint32_t)x;
+        x >>= 32;  // arithmetic: the carry keeps its sign
+    }
+    fe8_fold_signed(r, x);
 }
 
 K1_FN void fe8_neg(fe8& r, const fe8& a) {
@@ -104,24 +189,10 @@ K1_FN void fe8_neg(fe8& r, const fe8& a) {
     fe8_sub(r, z, a);
 }
 
-// a * b: the 512-bit schoolbook product t = H * 2^256 + L, then
-// L + 977 H + 2^32 H (at most 2^290), whose carry word folds once more.
-K1_FN void fe8_mul(fe8& r, const fe8& a, const fe8& b) {
-    uint32_t t[16];
-#pragma unroll
-    for (int i = 0; i < 16; i++) t[i] = 0;
-#pragma unroll
-    for (int i = 0; i < 8; i++) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = 0; j < 8; j++) {
-            // (2^32 - 1)^2 + 2 (2^32 - 1) = 2^64 - 1: no overflow
-            const uint64_t x = (uint64_t)a.v[i] * b.v[j] + t[i + j] + c;
-            t[i + j] = (uint32_t)x;
-            c = x >> 32;
-        }
-        t[i + 8] = (uint32_t)c;
-    }
+// The 512-bit t = H * 2^256 + L (16 words) reduced below 2^256: L + 977 H
+// + 2^32 H is below 2^289, so its carry word c (up to 2^32 + 977, 33 bits)
+// folds once more.
+K1_FN void fe8_reduce512(fe8& r, const uint32_t t[16]) {
     uint64_t x = 0;
 #pragma unroll
     for (int i = 0; i < 8; i++) {
@@ -129,13 +200,85 @@ K1_FN void fe8_mul(fe8& r, const fe8& a, const fe8& b) {
         r.v[i] = (uint32_t)x;
         x >>= 32;
     }
-    x += t[15];  // the top word of 2^32 H lands at word 8
-    fe8_fold(r, fe8_fold(r, x));
+    const uint64_t c = x + t[15];  // the top word of 2^32 H lands at word 8
+    fe8_fold_fast(r, c);
 }
 
-K1_FN void fe8_sq(fe8& r, const fe8& a) { fe8_mul(r, a, a); }
+// t[0..8] += ai * b, t[8] entering as 0; the sum fits in nine words.
+K1_FN void fe8_mac_row(uint32_t* t, uint32_t ai, const fe8& b) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+        // (2^32 - 1)^2 + 2 (2^32 - 1) = 2^64 - 1: no overflow
+        const uint64_t x = (uint64_t)ai * b.v[j] + t[j] + c;
+        t[j] = (uint32_t)x;
+        c = x >> 32;
+    }
+    t[8] = (uint32_t)c;
+}
 
-// a * k for a small constant k (3 and b3 = 21 in the complete formulas).
+// a * b: the 512-bit schoolbook product, 64 32x32->64 products (IMAD.WIDE)
+// accumulated row by row with exact carries, then fe8_reduce512.
+K1_FN void fe8_mul(fe8& r, const fe8& a, const fe8& b) {
+    uint32_t t[16];
+#pragma unroll
+    for (int i = 0; i < 16; i++) t[i] = 0;
+#pragma unroll
+    for (int i = 0; i < 8; i++) fe8_mac_row(t + i, a.v[i], b);
+    fe8_reduce512(r, t);
+}
+
+// a^2 in 36 products: the 28 off-diagonal a_i a_j (i < j), row by row into
+// t[1..14] (their sum is below 2^480, so t[15] stays 0), doubled by a
+// one-bit shift, plus the eight squares a_i^2 on the diagonal.
+K1_FN void fe8_sq(fe8& r, const fe8& a) {
+    uint32_t t[16];
+#pragma unroll
+    for (int i = 0; i < 16; i++) t[i] = 0;
+#pragma unroll
+    for (int i = 0; i < 7; i++) {
+        uint64_t c = 0;
+#pragma unroll
+        for (int j = i + 1; j < 8; j++) {
+            const uint64_t x = (uint64_t)a.v[i] * a.v[j] + t[i + j] + c;
+            t[i + j] = (uint32_t)x;
+            c = x >> 32;
+        }
+        t[i + 8] = (uint32_t)c;
+    }
+#pragma unroll
+    for (int k = 15; k > 0; k--) t[k] = (t[k] << 1) | (t[k - 1] >> 31);
+    t[0] <<= 1;
+    uint64_t c = 0;
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+        const uint64_t d = (uint64_t)a.v[i] * a.v[i];
+        c += (uint64_t)t[2 * i] + (uint32_t)d;
+        t[2 * i] = (uint32_t)c;
+        c >>= 32;
+        c += (uint64_t)t[2 * i + 1] + (d >> 32);
+        t[2 * i + 1] = (uint32_t)c;
+        c >>= 32;
+    }
+    fe8_reduce512(r, t);
+}
+
+// out = (a, b, c, d)[j], word by word, through masks: x ^ ((x ^ y) & m)
+// is one LOP3, so a four-way choice is three a word and no branch (a chain
+// of compares on j compiles into a branch tree on every word).
+K1_FN void fe8_select4(fe8& out, int j, const fe8& a, const fe8& b, const fe8& c,
+                       const fe8& d) {
+    const uint32_t odd = 0u - (uint32_t)(j & 1), high = 0u - (uint32_t)(j >> 1);
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+        const uint32_t ab = a.v[i] ^ ((a.v[i] ^ b.v[i]) & odd);
+        const uint32_t cd = c.v[i] ^ ((c.v[i] ^ d.v[i]) & odd);
+        out.v[i] = ab ^ ((ab ^ cd) & high);
+    }
+}
+
+// a * k for a small constant k < 2^32 (3, 8, 21 and 63 in the complete
+// formulas).
 K1_FN void fe8_mul_small(fe8& r, const fe8& a, uint32_t k) {
     uint64_t x = 0;
 #pragma unroll
@@ -144,7 +287,7 @@ K1_FN void fe8_mul_small(fe8& r, const fe8& a, uint32_t k) {
         r.v[i] = (uint32_t)x;
         x >>= 32;
     }
-    fe8_fold(r, fe8_fold(r, x));
+    fe8_fold_fast(r, (uint32_t)x);
 }
 
 K1_FN void fe8_sqn(fe8& r, const fe8& a, int n) {

@@ -11,16 +11,11 @@
 #include "ge_secp256k1.cuh"
 #include "ristretto255.cuh"
 
-// Byte k of lane t of a packed plane with B lanes, as each kernel thread
-// reads it.
-static void lane_bytes(const uint8_t* packed, int B, int t, int row0, uint8_t out[32]) {
-    for (int k = 0; k < 32; k++) out[k] = packed[(size_t)(row0 + k) * B + t];
-}
-
-// The 128 bytes of lane t (pk | r | s | h-or-k) of a packed [128, B]
-// plane, which the kernels gather into shared memory for the lane's quad.
-static void lane128(const uint8_t* packed, int B, int t, uint8_t out[128]) {
-    for (int k = 0; k < 128; k++) out[k] = packed[(size_t)k * B + t];
+// The n bytes of lane t of a packed [n, B] plane (n = 128: pk | r | s |
+// h-or-k; n = 168: pkx | u1 | u2 | r | rpn | parity), which the kernels
+// gather into shared memory for the lane's quad.
+static void lane_bytes(const uint8_t* packed, int B, int t, int n, uint8_t* out) {
+    for (int k = 0; k < n; k++) out[k] = packed[(size_t)k * B + t];
 }
 
 // The ed25519 kernel's per-signature verify over a packed [128, B] plane:
@@ -31,7 +26,7 @@ extern "C" void host_verify(const uint8_t* packed, int B, const int32_t* btab,
     const ge_niels* tab = reinterpret_cast<const ge_niels*>(btab);
     for (int t = 0; t < B; t++) {
         uint8_t lane[128];
-        lane128(packed, B, t, lane);
+        lane_bytes(packed, B, t, 128, lane);
         quad q;
         quad_table qt;
         out[t] = ed25519_verify_quad(q, lane, tab, qt);
@@ -44,7 +39,7 @@ extern "C" void host_sr_verify(const uint8_t* packed, int B, const int32_t* btab
     const ge_niels* tab = reinterpret_cast<const ge_niels*>(btab);
     for (int t = 0; t < B; t++) {
         uint8_t lane[128];
-        lane128(packed, B, t, lane);
+        lane_bytes(packed, B, t, 128, lane);
         quad q;
         quad_table qt;
         out[t] = sr25519_verify_quad(q, lane, tab, qt);
@@ -63,18 +58,17 @@ extern "C" void host_ristretto_decode(const uint8_t* enc, int n, int32_t* valid,
     }
 }
 
-// The secp256k1 kernel's per-lane verify over a packed [168, B] plane.
+// The secp256k1 kernel's per-signature verify over a packed [168, B]
+// plane, the same way.
 extern "C" void host_k1_verify(const uint8_t* packed, int B, const uint32_t* gtab,
                                int32_t* out) {
     const k1_point* tab = reinterpret_cast<const k1_point*>(gtab);
     for (int t = 0; t < B; t++) {
-        uint8_t pkx[32], u1[32], u2[32], r[32], rpn[32];
-        lane_bytes(packed, B, t, 0, pkx);
-        lane_bytes(packed, B, t, 32, u1);
-        lane_bytes(packed, B, t, 64, u2);
-        lane_bytes(packed, B, t, 96, r);
-        lane_bytes(packed, B, t, 128, rpn);
-        out[t] = k1_verify_lane(pkx, packed[(size_t)160 * B + t], u1, u2, r, rpn, tab);
+        uint8_t lane[168];
+        lane_bytes(packed, B, t, 168, lane);
+        quad q;
+        quad_tab<fe8> qt;
+        out[t] = k1_verify_quad(q, lane, tab, qt);
     }
 }
 
@@ -126,7 +120,7 @@ extern "C" void host_fe_limbs(int op, const int32_t* a, const int32_t* b, uint8_
 // One secp256k1 field op on n pairs of 32-byte big-endian inputs (any value
 // below 2^256), written as canonical 32-byte big-endian values:
 // 0 mul, 1 add, 2 sub, 3 neg, 4 sq, 5 times 21, 6 sqrt candidate,
-// 7 freeze (a alone).
+// 7 freeze (a alone), 8 21 a - 63 b (fe8_lin).
 extern "C" void host_fe8(int op, const uint8_t* a, const uint8_t* b, uint8_t* out,
                          int n) {
     for (int i = 0; i < n; i++) {
@@ -141,6 +135,7 @@ extern "C" void host_fe8(int op, const uint8_t* a, const uint8_t* b, uint8_t* ou
             case 4: fe8_sq(z, x); break;
             case 5: fe8_mul_small(z, x, 21); break;
             case 6: fe8_sqrt_candidate(z, x); break;
+            case 8: fe8_lin(z, 21, x, -63, y, 0, y); break;
             default: z = x; break;
         }
         fe8_freeze(z, z);

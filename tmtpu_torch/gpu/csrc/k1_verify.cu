@@ -1,5 +1,5 @@
-// Batched secp256k1 ECDSA (low-S) verification on Hopper (sm_90a): one
-// thread per lane.
+// Batched secp256k1 ECDSA (low-S) verification on Hopper (sm_90a): four
+// threads (a quad) per signature.
 //
 // Replaces the Pallas TPU kernel tmtpu/tpu/k1_kernel.py::_k1_verify_kernel
 // (launched by _k1_verify_pallas_jit / k1_verify_compact_kernel) and
@@ -13,16 +13,9 @@
 //
 // Input: the packed [168, B] uint8 plane (pkx | u1 | u2 | r | rpn as
 // big-endian 32-byte rows, the parity in row 160, seven zero rows; lanes on
-// the trailing axis), so thread t reads byte k of a plane at k*B + t. Any
-// B: the grid covers ceil(B / 64) blocks and the ragged edge is masked.
-// Output: int32 [B], 1 where the lane verifies.
-//
-// Field: eight 32-bit words with 32x32->64 products and reduction by
-// 2^256 = 2^32 + 977 (fe_secp256k1.cuh), in place of the TPU's twenty 13-bit
-// limbs. Tables: the projective table of d*G (16 x 3 field elements, 1,536
-// bytes), built on the host from the oracle, is copied into shared memory
-// once per block (lanes index it by different digits); the per-lane table
-// of d*Q (1,536 bytes) lives in thread-local memory.
+// the trailing axis). Any B: the grid covers ceil(B / (threads / 4)) blocks
+// and the ragged edge is masked (verify_quad.cuh). Output: int32 [B], 1
+// where the lane verifies.
 //
 // Bound on an H100 SXM: integer multiplies. The reference's algorithm
 // needs per lane 64 windows of four doublings (6M + 2S each), an addition
@@ -34,51 +27,63 @@
 // squaring 36: about 236,000 products per lane; at 64 integer
 // multiply-adds per SM per clock, 132 SMs at 1.98 GHz (16.7e12 per second),
 // 10,000 lanes cannot take less than ~0.14 ms. The 172 bytes a lane moves
-// are noise. This first version does nothing for that bound beyond one
-// thread per lane: squarings are full products, each product carries
-// word by word in 64-bit arithmetic rather than with PTX add-with-carry
-// chains, and the mixed vote set gives it only 500 lanes.
+// are noise, so neither TMA nor the tensor cores have anything to offer:
+// what is scarce is issue parallelism to hide the chain's latency.
+//
+// Design: a quad of four threads verifies a signature (ge_secp256k1.cuh):
+// every role holds the whole point and the products of each formula level
+// are shared out, one a role a round, and broadcast by __shfl_sync over the
+// quad; a doubling is two products a thread, an addition four, and zero
+// digits add nothing. Per thread, for random scalars: 256 doublings and
+// about 120 additions (992M), the table (56M), the decompression on every
+// role (14M + 255S, out of line, with 36-product squarings) and the final
+// compare (2M): about 1,064M + 255S, ~77,000 products, against ~236,000 on
+// one thread per lane. Field products are C rows of 64-bit multiply-adds
+// (fe_secp256k1.cuh); PTX add-with-carry chains compiled to four SASS
+// instructions a product and ran 7% slower. Every step of the formulas is
+// branch-free within a quad except the folds' rare tails, out of line.
+// Tables: the projective table of d*G (16 x 3 field elements, 1,536 B),
+// built on the host from the oracle, is copied into shared memory once per
+// block; the per-lane table of d*Q, d = 1..15 (1,440 B a signature), lies
+// in shared memory once per quad, laid out [element][word][quad], which
+// all four roles read at the same word and the eight quads of a warp at
+// eight banks. With the quads' 168 lane bytes a 128-thread block takes
+// 52,992 B. 128-thread blocks timed 4% faster than 64 or 32 at 10,000
+// lanes and the same at 500. ptxas: 128 registers, under the cap of
+// verify_quad.cuh (168); no spill; the stack is the out-of-line tails'.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fe_secp256k1.cuh"
 #include "ge_secp256k1.cuh"
+#include "verify_quad.cuh"
 
-#define K1_VERIFY_THREADS 64
-#define K1_PARITY_ROW 160
+#define K1_THREADS 128
 
-__global__ void __launch_bounds__(K1_VERIFY_THREADS)
-k1_verify_kernel(const uint8_t* __restrict__ packed, int B,
-                 const uint32_t* __restrict__ gtab, int32_t* __restrict__ out) {
-    __shared__ k1_point s_gtab[16];
-    uint32_t* s_flat = reinterpret_cast<uint32_t*>(s_gtab);
-    for (int i = threadIdx.x; i < 16 * 3 * 8; i += blockDim.x) s_flat[i] = gtab[i];
-    __syncthreads();
-
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= B) return;
-    uint8_t pkx[32], u1[32], u2[32], r[32], rpn[32];
-#pragma unroll
-    for (int j = 0; j < 32; j++) {
-        pkx[j] = packed[(size_t)j * B + t];
-        u1[j] = packed[(size_t)(32 + j) * B + t];
-        u2[j] = packed[(size_t)(64 + j) * B + t];
-        r[j] = packed[(size_t)(96 + j) * B + t];
-        rpn[j] = packed[(size_t)(128 + j) * B + t];
+struct K1Quad {
+    using base_t = k1_point;
+    using table_t = quad_tab<fe8>;
+    static constexpr int BASE_WORDS = 16 * 3 * 8;
+    static constexpr int LANE_BYTES = 168;
+    static constexpr int QUAD_TAB_WORDS = K1_TAB_ELEMS * 8;
+    __device__ static table_t table(int32_t* s_tab) {
+        return table_t{s_tab + (threadIdx.x >> 2), (int)(blockDim.x >> 2)};
     }
-    const uint32_t parity = packed[(size_t)K1_PARITY_ROW * B + t];
-    out[t] = k1_verify_lane(pkx, parity, u1, u2, r, rpn, s_gtab);
-}
+    __device__ __forceinline__ int operator()(const quad& q, const uint8_t* lane,
+                                              const k1_point* gtab, table_t& tab) const {
+        return k1_verify_quad(q, lane, gtab, tab);
+    }
+};
 
 // Plain C entry for ctypes. Launches on ``stream`` and returns
 // cudaGetLastError() (0 when the launch was accepted).
-extern "C" int k1_verify_launch(const void* packed, int B, const void* gtab,
-                                void* out, void* stream) {
-    if (B <= 0) return 0;
-    const int blocks = (B + K1_VERIFY_THREADS - 1) / K1_VERIFY_THREADS;
-    k1_verify_kernel<<<blocks, K1_VERIFY_THREADS, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint8_t*>(packed), B, static_cast<const uint32_t*>(gtab),
-        static_cast<int32_t*>(out));
-    return (int)cudaGetLastError();
+extern "C" int k1_verify_launch(const void* packed, int B, const void* gtab, void* out,
+                                void* stream) {
+    return quad_verify_launch<K1Quad>(packed, B, gtab, out, stream, K1_THREADS);
 }
+
+// The dynamic shared memory a launch gives each block, in bytes.
+extern "C" int k1_verify_smem_bytes(void) {
+    return (int)quad_smem_bytes<K1Quad>(K1_THREADS);
+}
+

@@ -44,7 +44,7 @@
 
 #define SR25519_THREADS 64
 
-struct Sr25519Quad {
+struct Sr25519Quad : EdwardsQuadLayout {
     __device__ __forceinline__ int operator()(const quad& q, const uint8_t* lane,
                                               const ge_niels* btab, quad_table& tab) const {
         return sr25519_verify_quad(q, lane, btab, tab);
@@ -59,4 +59,6 @@ extern "C" int sr25519_verify_launch(const void* packed, int B, const void* btab
 }
 
 // The dynamic shared memory a launch gives each block, in bytes.
-extern "C" int sr25519_verify_smem_bytes(void) { return (int)quad_smem_bytes(SR25519_THREADS); }
+extern "C" int sr25519_verify_smem_bytes(void) {
+    return (int)quad_smem_bytes<Sr25519Quad>(SR25519_THREADS);
+}
