@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (tmtpu_torch) on one CUDA card.
 
-Drives the port's two main paths once each, as a validator would, through
+Drives the port's three main paths, as a validator would, through
 ``new_batch_verifier().add(...)`` and ``verify_tally()``:
 
 1. a 10,000-validator ed25519 precommit vote set (power 3 each, real
-   canonical vote sign bytes, every 997th signature corrupted): host prep,
-   one host-to-device copy, the hand-written ed25519 CUDA kernel, the int64
+   canonical vote sign bytes, every 997th signature corrupted), on an empty
+   signature cache: the cache keys and lookups, the C host prep, one
+   host-to-device copy, the hand-written ed25519 CUDA kernel, the int64
    power tally and the bitarray pack on the card;
-2. a 10,000-validator mixed-curve set (9,000 ed25519, 500 sr25519 and 500
+2. one height of that set verified once: the ingestion flush (the 10,000
+   votes with every 4th relayed a second time, on an empty cache: 2,500
+   folded onto their first copy's lane) and the commit flush of the next
+   block (the same 10,000 triples: hits but for the 11 corrupted ones,
+   which were never cached);
+3. a 10,000-validator mixed-curve set (9,000 ed25519, 500 sr25519 and 500
    secp256k1 keys, interleaved, power 3 each, five corrupted signatures per
-   curve): one device dispatch per curve, through the ed25519, sr25519 and
-   secp256k1 CUDA kernels, and the whole bitarray packed on the card.
+   curve) on an empty cache: one device dispatch per curve, through the
+   ed25519, sr25519 and secp256k1 CUDA kernels, and the whole bitarray
+   packed on the card.
 
-Each path runs with every launch counter set to 0 just before it and read
+Each flush runs with every launch counter set to 0 just before it and read
 just after. Then each kernel is held against its plain PyTorch version on
 the same planes at each width its paths give it, at 10,000 lanes, at 1, 3,
 5 and 33 lanes (the ragged edge of the kernels' blocks of four-thread
 quads) and on an adversarial block, samples are checked against the
-pure-Python oracles, and the kernels, the plain versions, host prep and
-both paths end to end are timed.
+pure-Python oracles, the C host prep is held against the Python prep, and
+the kernels, the plain versions, host prep, the phases of one cold
+ed25519 flush and every path end to end are timed (cold flushes on an
+emptied cache, and with the cache switched off).
 
 Usage: ``python3 chip_smoke.py``. Needs one CUDA card; exits non-zero
 without one, and on any failed check. Prints a ``{"kernels": [...]}`` line,
@@ -45,11 +54,13 @@ import torch
 
 from tests import torch_corpus as corpus
 from tmtpu_torch import device as device_mod
+from tmtpu_torch import native
 from tmtpu_torch.crypto import batch as crypto_batch
+from tmtpu_torch.crypto import sigcache
 from tmtpu_torch.crypto.ed25519 import PrivKeyEd25519, PubKeyEd25519
 from tmtpu_torch.crypto.secp256k1 import PubKeySecp256k1
 from tmtpu_torch.crypto.sr25519 import PrivKeySr25519, PubKeySr25519
-from tmtpu_torch.gpu import build, k1_kernel, kernel
+from tmtpu_torch.gpu import build, k1_kernel, kernel, sharding
 from tmtpu_torch.gpu import k1_verify as kv
 from tmtpu_torch.gpu import sr_verify as sv
 from tmtpu_torch.gpu import verify as tv
@@ -103,7 +114,9 @@ K1_FIXED_MS = (63 * 4 * 6 + 14 * 12 + 14 + 2, 63 * 4 * 2 + 255)
 K1_ADD_M = 12
 K1_PRODUCTS_PER_M, K1_PRODUCTS_PER_S = 64, 36
 
-RAGGED = (1, 3, 5, 33)
+RAGGED = (1, 3, 5, 11, 33)
+
+RELAY_EVERY = 4  # the ingestion flush gets every 4th vote twice
 
 N_SR, N_K1 = 500, 500
 BAD_PER_CURVE = 5
@@ -113,6 +126,18 @@ CURVE_ORDER = (crypto_batch.ED25519, crypto_batch.SR25519, crypto_batch.SECP256K
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def cpu_model() -> str:
+    """The host CPU's model name (the host prep and the cache run there)."""
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return "CPU model not known"
 
 
 def smi_line() -> str:
@@ -219,10 +244,13 @@ def time_cuda(fn, runs: int) -> list:
     return times
 
 
-def time_host(fn, runs: int) -> float:
-    """Median host-clock time (ms) of ``runs`` calls."""
+def time_host(fn, runs: int, before=None) -> float:
+    """Median host-clock time (ms) of ``runs`` calls, each after an untimed
+    call of ``before`` (e.g. emptying the signature cache)."""
     times = []
     for _ in range(runs):
+        if before is not None:
+            before()
         t0 = time.perf_counter()
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
@@ -312,8 +340,9 @@ def check_kernel(curve: Curve, pks, msgs, sigs, expect, adversarial, n, card):
         mismatches += p_mismatch
         max_abs_err = max(max_abs_err, p_err)
 
-    # the ragged edge: the path plane's first 1, 3, 5 and 33 lanes, each
-    # launched alone, against one plain call over all of them
+    # the ragged edge: the path plane's first 1, 3, 5, 11 (the commit
+    # flush's width in path 2) and 33 lanes, valid and corrupted lanes
+    # mixed, each launched alone, against one plain call over all of them
     ragged = [lane_packed[:, :r].contiguous() for r in RAGGED]
     r_kernel = torch.cat([curve.launch(p) for p in ragged])
     r_plain = curve.plain(torch.cat(ragged, dim=1).contiguous())
@@ -379,6 +408,108 @@ def check_kernel(curve: Curve, pks, msgs, sigs, expect, adversarial, n, card):
     }
 
 
+def phase_split(keys, msgs, sigs, dev) -> dict:
+    """One cold ed25519 verify_tally at power 3, phase by phase: the
+    functions the call runs, called in sequence with the card synchronised
+    around each. Returns {phase: ms}; checks the result against a whole
+    call's."""
+    cache = sigcache.DEFAULT
+    cache.invalidate_all()
+    items = [(k, m, s, POWER) for k, m, s in zip(keys, msgs, sigs)]
+    times = {}
+
+    def phase(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    types, pks, _, _ = phase("item fields (the keys' bytes())",
+                             lambda: crypto_batch.item_fields(items))
+    ks, rep = phase("cache keys, lookups and dedup (one C call)",
+                    lambda: cache.resolve(types, pks, msgs, sigs))
+    check(rep.tolist() == list(range(len(items))), "phase split: a cold cache")
+    packed, host_ok = phase("C prep", lambda: tv.prepare_batch_packed(pks, msgs, sigs))
+    packed_d, powers_d, ok_d = phase("host-to-device copy", lambda: sharding.upload(
+        packed, [POWER] * len(items), host_ok, dev))
+    k_mask = phase("kernel", lambda: kernel.verify_packed(packed_d))
+    mask, tally = phase("tally and readback", lambda: sharding.readback(
+        *sharding.tally_lanes(k_mask, powers_d, ok_d)))
+
+    def inserts():
+        cache.add_many(ks[mask])
+        return mask.tolist()
+    mask_list = phase("cache inserts", inserts)
+    words = phase("bit pack", lambda: sharding.pack_words(mask_list, dev))
+    whole = crypto_batch.new_batch_verifier()
+    for item in items:
+        whole.add(*item)
+    cache.invalidate_all()
+    _, want_mask, want_tally = whole.verify_tally()
+    check(mask_list == want_mask and tally == want_tally
+          and np.array_equal(words, whole.bit_words), "phase split == one whole call")
+    return times
+
+
+def verify_once(keys, msgs, sigs, expect, cold, card) -> dict:
+    """Path 2: one height verified once. The ingestion flush, on an empty
+    cache, gets every vote and every 4th a second time; the commit flush
+    of the next block gets the 10,000 triples again. ``cold`` is the
+    ed25519 path's (mask, tally, bit_words). Returns the launch counts and
+    times."""
+    n = len(keys)
+    sigcache.invalidate_all()
+    order = [j for i in range(n) for j in ([i, i] if i % RELAY_EVERY == 0 else [i])]
+    ingest = crypto_batch.new_batch_verifier()
+    for i in order:
+        ingest.add(keys[i], msgs[i], sigs[i], POWER)
+    reset_launches()
+    t0 = time.perf_counter()
+    all_ok, mask, tally = ingest.verify_tally()
+    ingest_ms = (time.perf_counter() - t0) * 1e3
+    ingest_launches = launches()
+    want = expect[order]
+    relayed = len(order) - n
+    check(ingest.cache_stats == {"lanes": len(order), "hits": 0, "dedup": relayed,
+                                 "dispatched": n},
+          f"ingestion cache_stats {ingest.cache_stats}")
+    check(ingest_launches == {"ed25519_verify": 1, "sr25519_verify": 0, "k1_verify": 0},
+          f"ingestion: one ed25519 launch ({ingest_launches})")
+    check(not all_ok and np.array_equal(np.array(mask), want),
+          "ingestion: false exactly at the corrupted votes and their copies")
+    check(tally == POWER * int(want.sum()), f"ingestion tally {tally}")
+    check(np.array_equal(ingest.bit_words, words_of(want)), "ingestion bitarray words")
+    print(f"verify once, ingestion: {len(order)} items ({relayed} relayed twice), "
+          f"cache_stats {ingest.cache_stats}, launches {ingest_launches}, tally {tally}, "
+          f"{int((~want).sum())} rejected; flush {ingest_ms:.3f} ms [{card}]")
+
+    commit = crypto_batch.new_batch_verifier()
+    for i in range(n):
+        commit.add(keys[i], msgs[i], sigs[i], POWER)
+    reset_launches()
+    t0 = time.perf_counter()
+    all_ok, mask, tally = commit.verify_tally()
+    commit_ms = (time.perf_counter() - t0) * 1e3
+    commit_launches = launches()
+    bad = int((~expect).sum())
+    check(commit.cache_stats == {"lanes": n, "hits": n - bad, "dedup": 0, "dispatched": bad},
+          f"commit cache_stats {commit.cache_stats}")
+    check(commit_launches == {"ed25519_verify": 1, "sr25519_verify": 0, "k1_verify": 0},
+          f"commit: one ed25519 launch ({commit_launches})")
+    cold_mask, cold_tally, cold_words = cold
+    check(mask == cold_mask and tally == cold_tally and not all_ok,
+          "commit: the cold call's mask and tally")
+    check(np.array_equal(commit.bit_words, cold_words), "commit: the cold call's bitarray")
+    print(f"verify once, commit: {n} items, cache_stats {commit.cache_stats}, "
+          f"launches {commit_launches} ({bad} lanes), tally {tally}; "
+          f"flush {commit_ms:.3f} ms [{card}]")
+    return {"ingest_launches": ingest_launches["ed25519_verify"],
+            "commit_launches": commit_launches["ed25519_verify"],
+            "ingest_ms": ingest_ms, "commit_ms": commit_ms}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -398,6 +529,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(logs) or 'cached'})")
+    t0 = time.perf_counter()
+    print(f"host prep library: {native.build()} in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         # every kernel runs quads of four threads a signature with dynamic
         # shared memory, which ptxas does not see; each library reports its
@@ -425,10 +558,11 @@ def main() -> int:
     print(f"ed25519 vote set: {n} validators, {len(bad)} corrupted")
     keys = [PubKeyEd25519(pk) for pk in pks]
 
-    reset_launches()
+    sigcache.invalidate_all()
     bv = crypto_batch.new_batch_verifier()
     for key, msg, sig in zip(keys, msgs, sigs):
         bv.add(key, msg, sig, POWER)
+    reset_launches()
     all_ok, mask, tally = bv.verify_tally()
     ed_launches = launches()
     expect = np.ones(n, dtype=bool)
@@ -441,19 +575,62 @@ def main() -> int:
     check(ed_launches["ed25519_verify"] > 0, "the ed25519 path launched its kernel")
     print(f"ed25519 path: verify_tally over {n} votes, tally {tally}, "
           f"{len(bad)} rejected, launches {ed_launches}")
-    e2e_ms = time_host(bv.verify_tally, 5)
-    print(f"end to end verify_tally: {e2e_ms:.3f} ms median of 5 = "
-          f"{n / e2e_ms * 1e3:.0f} sig/s [{card}]")
+    cold = (mask, tally, bv.bit_words.copy())
+    e2e_ms = time_host(bv.verify_tally, 5, before=sigcache.invalidate_all)
+    sigcache.DEFAULT.set_enabled(False)
+    e2e_off_ms = time_host(bv.verify_tally, 5)
+    sigcache.DEFAULT.set_enabled(True)
+    print(f"end to end verify_tally, cold: {e2e_ms:.3f} ms median of 5 = "
+          f"{n / e2e_ms * 1e3:.0f} sig/s; cache off {e2e_off_ms:.3f} ms [{card}]")
+
+    # 4b. the phases of one cold flush
+    phase_split(keys, msgs, sigs, torch.device("cuda"))  # warm-up
+    phases = phase_split(keys, msgs, sigs, torch.device("cuda"))
+    py_keys_ms = time_host(lambda: [sigcache.cache_key(k.type_value(), k.bytes(), m, s)
+                                    for k, m, s in zip(keys, msgs, sigs)], 5)
+    print("phases of one cold ed25519 verify_tally (ms): "
+          + ", ".join(f"{name} {ms:.3f}" for name, ms in phases.items())
+          + f"; sum {sum(phases.values()):.3f}; the keys in Python (sigcache.cache_key) "
+          f"{py_keys_ms:.3f} median of 5 [{card}]")
+    _, pk_arr, r_arr, s_arr = tv.host_lanes(pks, sigs)
+    types = [k.type_value() for k in keys]
+    c_ms = {nt: (time_host(lambda: native.prep_ed25519(pk_arr, r_arr, s_arr, msgs,
+                                                       nthreads=nt), 5),
+                 time_host(lambda: native.cache_keys(types, pks, msgs, sigs, nthreads=nt), 5))
+            for nt in (1, native._threads(None))}
+    sha_ni = native.sha256_ni()
+    native.sha256_ni(False)
+    portable_ms = {nt: time_host(lambda: native.cache_keys(types, pks, msgs, sigs,
+                                                           nthreads=nt), 5)
+                   for nt in c_ms}
+    native.sha256_ni(sha_ni)
+    print("C entries alone, medians of 5 (ms): " + "; ".join(
+        f"{nt} thread(s): prep_ed25519 {a:.3f}, cache_keys {b:.3f} "
+        f"(portable SHA-256 {portable_ms[nt]:.3f})" for nt, (a, b) in c_ms.items())
+        + f"; SHA extensions {'in use' if sha_ni else 'absent'} ({os.cpu_count()} CPUs, "
+        f"{cpu_model()}) [{card}]")
+
+    # 4c. path 2: one height verified once
+    once = verify_once(keys, msgs, sigs, expect, cold, card)
 
     # 5. the ed25519 kernel against plain on the card, and its times
     ed_entry = check_kernel(CURVES[crypto_batch.ED25519], pks, msgs, sigs, expect,
                             corpus.adversarial(), n, card)
     ed_entry["launches"] = ed_launches["ed25519_verify"]
     ed_entry["e2e_ms"] = e2e_ms
+    ed_entry["e2e_ms_cache_off"] = e2e_off_ms
+    ed_entry.update(once)
+    ed_entry["phases_ms"] = phases
     prep_ms = time_host(lambda: tv.prepare_batch_packed(pks, msgs, sigs), 5)
+    plain_prep_ms = time_host(lambda: tv.prepare_batch_packed_plain(pks, msgs, sigs), 5)
+    c_prep, py_prep = (tv.prepare_batch_packed(pks, msgs, sigs),
+                       tv.prepare_batch_packed_plain(pks, msgs, sigs))
+    check(np.array_equal(c_prep[0], py_prep[0]) and np.array_equal(c_prep[1], py_prep[1]),
+          f"ed25519 C prep == Python prep on {n} lanes")
     # medians of separate loops: their difference is no measurement of the rest
-    print(f"within verify_tally ({e2e_ms:.3f} ms): host prep {prep_ms:.3f} ms "
-          f"median of 5 run alone, kernel {ed_entry['ms']:.3f} ms [{card}]")
+    print(f"within verify_tally ({e2e_ms:.3f} ms): host prep in C {prep_ms:.3f} ms, "
+          f"in Python {plain_prep_ms:.3f} ms (equal bytes on {n} lanes), medians of 5 "
+          f"run alone; kernel {ed_entry['ms']:.3f} ms [{card}]")
 
     # 7. the mixed-curve set: 9,000 ed25519 (the first 9,000 keys above),
     # 500 sr25519 and 500 secp256k1, interleaved in the add order
@@ -489,6 +666,7 @@ def main() -> int:
     print(f"mixed-curve vote set: {counts}, {len(m_bad)} corrupted")
 
     # 8. the mixed path, counted
+    sigcache.invalidate_all()
     reset_launches()
     t0 = time.perf_counter()
     mv = crypto_batch.new_batch_verifier()
@@ -507,8 +685,12 @@ def main() -> int:
     print(f"mixed path: verify_tally over {n} votes, tally {tally}, "
           f"{len(m_bad)} rejected, launches {mixed_launches} "
           f"(first call, adds included, {first_mixed_ms:.1f} ms)")
-    mixed_ms = time_host(mv.verify_tally, 3)
-    print(f"end to end mixed verify_tally: {mixed_ms:.3f} ms median of 3 [{card}]")
+    mixed_ms = time_host(mv.verify_tally, 3, before=sigcache.invalidate_all)
+    sigcache.DEFAULT.set_enabled(False)
+    mixed_off_ms = time_host(mv.verify_tally, 3)
+    sigcache.DEFAULT.set_enabled(True)
+    print(f"end to end mixed verify_tally, cold: {mixed_ms:.3f} ms median of 3; "
+          f"cache off {mixed_off_ms:.3f} ms [{card}]")
 
     # 9. the new kernels against plain at full width, and their times
     entries = [ed_entry]
@@ -527,6 +709,15 @@ def main() -> int:
     for kind in CURVE_ORDER:
         args = args_of(kind)
         parts[kind] = time_host(lambda: CURVES[kind].prep(*args), 3)
+    sr_args = args_of(crypto_batch.SR25519)
+    sr_plain_ms = time_host(lambda: sv.prepare_sr_batch_packed_plain(*sr_args), 3)
+    c_prep, py_prep = (sv.prepare_sr_batch_packed(*sr_args),
+                       sv.prepare_sr_batch_packed_plain(*sr_args))
+    check(np.array_equal(c_prep[0], py_prep[0]) and np.array_equal(c_prep[1], py_prep[1]),
+          f"sr25519 C prep == Python prep on {counts['sr25519']} lanes")
+    print(f"sr25519 host prep: C {parts[crypto_batch.SR25519]:.3f} ms, Python "
+          f"{sr_plain_ms:.3f} ms (equal bytes on {counts['sr25519']} lanes), medians of 3 "
+          f"[{card}]")
     # the ed25519 kernel against plain at the mixed path's width
     ed_np, ed_ok = tv.prepare_batch_packed(*args_of(crypto_batch.ED25519))
     ed_path_packed = torch.from_numpy(ed_np).cuda()
@@ -549,8 +740,9 @@ def main() -> int:
     entries[0]["path_ms"] = ed_path_ms
     entries[0]["path_lanes"] = counts["ed25519"]
     entries[0]["mixed_launches"] = mixed_launches["ed25519_verify"]
-    for entry in entries[1:]:
+    for entry in entries:
         entry["mixed_e2e_ms"] = mixed_ms
+        entry["mixed_e2e_ms_cache_off"] = mixed_off_ms
 
     # 11. kernels line, card and result
     print(json.dumps({"kernels": entries}))

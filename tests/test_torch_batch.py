@@ -14,11 +14,23 @@ from tmtpu.types.vote import PREVOTE as J_PREVOTE
 from tmtpu.types.vote import Vote
 from tmtpu_torch.crypto import batch
 from tmtpu_torch.crypto import ed25519 as ed
+from tmtpu_torch.crypto import sigcache
 from tmtpu_torch.types import vote as tvote
 
 CHAIN_ID = "test-chain-port"
 HASH = bytes(range(32))
 PARTS = bytes(range(32, 64))
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_sigcache():
+    """Every test starts on an empty, enabled port signature cache: the
+    cache is process-wide, so a corpus verified by an earlier test would
+    otherwise come back as hits and launch nothing."""
+    sigcache.DEFAULT.set_enabled(True)
+    sigcache.DEFAULT.invalidate_all()
+    yield
+    sigcache.DEFAULT.invalidate_all()
 
 
 @pytest.mark.parametrize("case", [

@@ -46,6 +46,17 @@ def test_every_module_imports_without_jax_or_tmtpu():
     assert proc.stdout.startswith("ok")
 
 
+def test_host_prep_and_cache_are_covered():
+    """The C host prep's binding and the signature cache are among the
+    modules checked above, and the C source includes system headers only:
+    it is the port's own copy and the build reads nothing of tmtpu."""
+    names = _module_names()
+    assert "tmtpu_torch.native" in names and "tmtpu_torch.crypto.sigcache" in names
+    with open(os.path.join(ROOT, "tmtpu_torch", "native", "hostprep.c"), encoding="utf-8") as fh:
+        includes = re.findall(r"^#include\s*(\S+)", fh.read(), re.M)
+    assert includes and all(i.startswith("<") for i in includes), includes
+
+
 _IMPORT = re.compile(r"^\s*(from|import)\s+(jax|tmtpu|cryptography)\b", re.M)
 
 

@@ -8,12 +8,24 @@ import pytest
 import torch
 
 from tmtpu_torch.crypto import ed25519_ref as ref
+from tmtpu_torch.crypto import sigcache
 from tmtpu_torch.gpu import build, k1_kernel, kernel
 from tmtpu_torch.gpu import k1_verify as kv
 from tmtpu_torch.gpu import sr_verify as sv
 from tmtpu_torch.gpu import verify as tv
 
 from tests import torch_corpus as corpus
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_sigcache():
+    """Every test starts on an empty, enabled port signature cache: the
+    cache is process-wide, so a corpus verified by an earlier test would
+    otherwise come back as hits and launch nothing."""
+    sigcache.DEFAULT.set_enabled(True)
+    sigcache.DEFAULT.invalidate_all()
+    yield
+    sigcache.DEFAULT.invalidate_all()
 
 
 @pytest.fixture

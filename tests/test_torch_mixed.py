@@ -17,6 +17,7 @@ from tmtpu.crypto import sr25519 as jsr
 from tmtpu_torch.crypto import batch
 from tmtpu_torch.crypto import ed25519 as ed
 from tmtpu_torch.crypto import secp256k1 as k1
+from tmtpu_torch.crypto import sigcache
 from tmtpu_torch.crypto import sr25519 as sr
 
 CURVES = {
@@ -24,6 +25,17 @@ CURVES = {
     batch.SR25519: (sr.PrivKeySr25519, jsr.PrivKeySr25519),
     batch.SECP256K1: (k1.PrivKeySecp256k1, jk1.PrivKeySecp256k1),
 }
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_sigcache():
+    """Every test starts on an empty, enabled port signature cache: the
+    cache is process-wide, so a corpus verified by an earlier test would
+    otherwise come back as hits and launch nothing."""
+    sigcache.DEFAULT.set_enabled(True)
+    sigcache.DEFAULT.invalidate_all()
+    yield
+    sigcache.DEFAULT.invalidate_all()
 
 
 def _secret(kind, i):

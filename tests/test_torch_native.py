@@ -1,0 +1,192 @@
+"""The port's C host prep (tmtpu_torch/native) byte for byte against the
+reference package's C host prep (tmtpu/native) and the port's plain Python
+prep (``prepare_batch_packed_plain``, ``prepare_sr_batch_packed_plain``),
+with 1, 3 and 8 threads: empty and one-lane batches, messages of 0-300
+bytes across the SHA-512 padding edges and the STROBE rate, and the
+adversarial corpora of tests/torch_corpus.py. A build that fails raises."""
+
+import hashlib
+
+import numpy as np
+import pytest
+
+from tests import torch_corpus as corpus
+from tmtpu import native as jnative
+from tmtpu.tpu import sr_verify as jsv
+from tmtpu.tpu import verify as jtv
+from tmtpu_torch import native
+from tmtpu_torch.crypto import ed25519_ref as ref
+from tmtpu_torch.crypto.sr25519 import challenge_k, gen_priv_key_from_secret
+from tmtpu_torch.gpu import sr_verify as sv
+from tmtpu_torch.gpu import verify as tv
+
+THREADS = [1, 3, 8]
+
+# R || A || M of 111, 112, 127, 128, 239 and 240 bytes straddle SHA-512's
+# padding; 165, 166, 167 and 332-byte messages straddle STROBE's 166-byte rate
+EDGE_LENGTHS = [0, 1, 47, 48, 63, 64, 165, 166, 167, 175, 176, 300, 332]
+
+
+def _ed_edges():
+    rng = np.random.default_rng(5)
+    seeds = [rng.bytes(32) for _ in EDGE_LENGTHS]
+    msgs = [rng.bytes(n) for n in EDGE_LENGTHS]
+    return ([ref.public_key(s) for s in seeds], msgs,
+            [ref.sign(s, m) for s, m in zip(seeds, msgs)])
+
+
+def _sr_edges():
+    rng = np.random.default_rng(6)
+    keys = [gen_priv_key_from_secret(rng.bytes(16)) for _ in EDGE_LENGTHS]
+    msgs = [rng.bytes(n) for n in EDGE_LENGTHS]
+    return ([k.pub_key().bytes() for k in keys], msgs,
+            [k.sign(m) for k, m in zip(keys, msgs)])
+
+
+ED_CORPORA = {**corpus.CORPORA, "edges": _ed_edges, "empty": lambda: ([], [], []),
+              "one": lambda: corpus.signed(1, 3)}
+SR_CORPORA = {**corpus.SR_CORPORA, "edges": _sr_edges, "empty": lambda: ([], [], []),
+              "one": lambda: corpus.sr_signed(1, 4)}
+
+
+def _random_rows(n, seed):
+    """n lanes of random pk, r and s rows (a third of s below L) and
+    messages of n different lengths."""
+    rng = np.random.default_rng(seed)
+    pk, r, s = (rng.integers(0, 256, (n, 32), dtype=np.uint8) for _ in range(3))
+    s[::3, 31] &= 0x0F
+    return pk, r, s, [rng.bytes(i) for i in range(n)]
+
+
+@pytest.mark.parametrize("nthreads", THREADS)
+@pytest.mark.parametrize("n", [0, 1, 301])
+def test_prep_ed25519_equals_reference_and_hashlib(n, nthreads):
+    pk, r, s, msgs = _random_rows(n, 11 + n)
+    h, s_ok = native.prep_ed25519(pk, r, s, msgs, nthreads=nthreads)
+    want_h, want_ok = jnative.prep_ed25519(pk, r, s, msgs, nthreads=nthreads)
+    np.testing.assert_array_equal(h, want_h)
+    np.testing.assert_array_equal(s_ok, want_ok)
+    for i in range(n):
+        d = hashlib.sha512(r[i].tobytes() + pk[i].tobytes() + msgs[i]).digest()
+        assert h[i].tobytes() == (int.from_bytes(d, "little") % ref.L).to_bytes(32, "little")
+        assert s_ok[i] == (int.from_bytes(s[i].tobytes(), "little") < ref.L)
+
+
+@pytest.mark.parametrize("nthreads", THREADS)
+@pytest.mark.parametrize("n", [0, 1, 301])
+def test_sr_challenges_equal_reference(n, nthreads):
+    pk, r, _, msgs = _random_rows(n, 12 + n)
+    k = native.sr_challenges(pk, r, msgs, nthreads=nthreads)
+    np.testing.assert_array_equal(k, jnative.sr_challenges(pk, r, msgs, nthreads=nthreads))
+    if nthreads == 1:  # the pure-Python merlin once per width
+        for i in range(n):
+            assert k[i].tobytes() == challenge_k(pk[i].tobytes(), msgs[i],
+                                                 r[i].tobytes()).to_bytes(32, "little")
+
+
+@pytest.mark.parametrize("name", sorted(ED_CORPORA))
+def test_ed25519_prep_on_corpora(name):
+    """The packed plane and host verdicts equal the plain prep's and the
+    reference's; the C entry equals the reference's at every thread count."""
+    pks, msgs, sigs = ED_CORPORA[name]()
+    packed, ok = tv.prepare_batch_packed(pks, msgs, sigs)
+    for other in (tv.prepare_batch_packed_plain, jtv.prepare_batch_packed):
+        want_packed, want_ok = other(pks, msgs, sigs)
+        np.testing.assert_array_equal(packed, want_packed)
+        np.testing.assert_array_equal(ok, want_ok)
+    _, pk, r, s = tv.host_lanes(pks, sigs)
+    for nthreads in THREADS:
+        h, s_ok = native.prep_ed25519(pk, r, s, msgs, nthreads=nthreads)
+        want_h, want_ok = jnative.prep_ed25519(pk, r, s, msgs, nthreads=nthreads)
+        np.testing.assert_array_equal(h, want_h)
+        np.testing.assert_array_equal(s_ok, want_ok)
+        np.testing.assert_array_equal(h.T, packed[96:128])
+
+
+@pytest.mark.parametrize("name", sorted(SR_CORPORA))
+def test_sr25519_prep_on_corpora(name):
+    """The same for sr25519; rejected lanes (no marker, s >= L, odd or
+    out-of-range encodings, wrong lengths) carry the challenge of zero
+    bytes."""
+    pks, msgs, sigs = SR_CORPORA[name]()
+    packed, ok = sv.prepare_sr_batch_packed(pks, msgs, sigs)
+    for other in (sv.prepare_sr_batch_packed_plain, jsv.prepare_sr_batch_packed):
+        want_packed, want_ok = other(pks, msgs, sigs)
+        np.testing.assert_array_equal(packed, want_packed)
+        np.testing.assert_array_equal(ok, want_ok)
+    pk = np.ascontiguousarray(packed[0:32].T)
+    r = np.ascontiguousarray(packed[32:64].T)
+    for nthreads in THREADS:
+        k = native.sr_challenges(pk, r, msgs, nthreads=nthreads)
+        np.testing.assert_array_equal(k, jnative.sr_challenges(pk, r, msgs, nthreads=nthreads))
+        np.testing.assert_array_equal(k.T, packed[96:128])
+
+
+def test_adversarial_corpora_reach_the_rejections():
+    """The corpora above hold what they are meant to: wrong lengths, s >= L
+    and non-canonical keys for ed25519; a cleared marker for sr25519."""
+    _, ok = tv.prepare_batch_packed(*corpus.adversarial())
+    assert not ok[4] and not ok[5] and not ok[8]
+    _, ok = tv.prepare_batch_packed(*corpus.lengths())
+    assert ok.tolist() == [True, False, False, False, False, True]
+    _, ok = sv.prepare_sr_batch_packed(*corpus.sr_adversarial())
+    assert not ok[5] and not ok[9]
+
+
+def test_rows_are_checked_before_the_call():
+    with pytest.raises(ValueError, match=r"\[2, 32\]"):
+        native.prep_ed25519(np.zeros((2, 31), np.uint8), np.zeros((2, 32), np.uint8),
+                            np.zeros((2, 32), np.uint8), [b"", b""])
+    with pytest.raises(ValueError, match="expected 2 byte strings"):
+        native.cache_keys(["ed25519", "ed25519"], [b"", b""], [b""], [b"", b""])
+
+
+def test_no_compiler_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", "")
+    with pytest.raises(RuntimeError, match="no C compiler"):
+        native.build(out_dir=str(tmp_path / "fresh"))
+
+
+def test_failed_compile_raises_with_the_compiler_message(tmp_path):
+    bad = tmp_path / "bad.c"
+    bad.write_text("int broken(void) { return undeclared_name; }\n")
+    with pytest.raises(RuntimeError, match="undeclared_name"):
+        native.build(src=str(bad), out_dir=str(tmp_path / "out"))
+    assert not list((tmp_path / "out").iterdir())  # no partial library left
+
+
+def test_missing_symbol_raises(monkeypatch, tmp_path):
+    stub = tmp_path / "stub.c"
+    stub.write_text("void tmtpu_prep_ed25519(void) {}\n")
+    path = native.build(src=str(stub), out_dir=str(tmp_path))
+    monkeypatch.setattr(native, "build", lambda: path)
+    monkeypatch.setattr(native, "_lib", None)
+    with pytest.raises(AttributeError, match="tmtpu_sr_challenges"):
+        native.load()
+
+
+def test_main_path_prep_has_no_other_version(monkeypatch):
+    """When the C library cannot load, host prep raises; it does not fall
+    back to the Python prep."""
+    def fail():
+        raise RuntimeError("no host prep library")
+
+    monkeypatch.setattr(native, "load", fail)
+    with pytest.raises(RuntimeError, match="no host prep library"):
+        tv.prepare_batch_packed(*corpus.signed(2, 1))
+    with pytest.raises(RuntimeError, match="no host prep library"):
+        sv.prepare_sr_batch_packed(*corpus.sr_signed(2, 1))
+
+
+def test_library_is_built_from_the_port_source():
+    assert native.SRC.endswith("tmtpu_torch/native/hostprep.c")
+    assert native.lib_path().startswith(native.BUILD_DIR)
+    assert "tmtpu_torch/gpu/build/host" in native.BUILD_DIR.replace("\\", "/")
+
+
+def test_library_name_follows_the_toolchain(monkeypatch):
+    """A library built by another compiler, or for another machine or C
+    library, has another name, so it is never loaded here."""
+    here = native.lib_path()
+    monkeypatch.setattr(native, "_toolchain", lambda cmd: "another compiler 1.0\naarch64")
+    assert native.lib_path() != here

@@ -32,34 +32,53 @@ def pack_bitarray(mask: torch.Tensor) -> torch.Tensor:
     return (w << shifts[None, :]).sum(dim=1)
 
 
-def verify_tally_step_compact(packed, powers, ok, base_table):
-    """Plain step: verify every lane of the [128, B] plane, keep the lanes
-    the host accepted (``ok`` bool [B]) and sum their int64 ``powers``.
-    Returns (mask bool [B], tally int64 scalar)."""
-    mask = tv.verify_core_compact(*tv.split_packed(packed), base_table) & ok
+def pack_words(mask, device) -> np.ndarray:
+    """A host bool mask -> its bitarray words packed on ``device``, read
+    back as uint32."""
+    words = pack_bitarray(torch.as_tensor(np.asarray(mask, dtype=bool), device=device))
+    return words.cpu().numpy().astype(np.uint32)
+
+
+def tally_lanes(mask, powers, ok):
+    """Keep the lanes the host accepted (``ok`` bool [B]) and sum their
+    int64 ``powers``. Returns (mask bool [B], tally int64 scalar)."""
+    mask = mask & ok
     return mask, (powers * mask).sum()
+
+
+def verify_tally_step_compact(packed, powers, ok, base_table):
+    """Plain step: verify every lane of the [128, B] plane and tally."""
+    return tally_lanes(tv.verify_core_compact(*tv.split_packed(packed), base_table),
+                       powers, ok)
 
 
 def verify_tally_step_kernel(packed, powers, ok):
     """The same step with verification in the CUDA kernel (for a CUDA
     plane; ``kernel.verify_packed`` takes the plain version for a CPU one).
     The tally stays a plain torch op on the device."""
-    mask = kernel.verify_packed(packed) & ok
-    return mask, (powers * mask).sum()
+    return tally_lanes(kernel.verify_packed(packed), powers, ok)
+
+
+def upload(packed, powers, host_ok, device):
+    """The host's plane, powers and verdicts on ``device``: the flush's one
+    host-to-device copy of each."""
+    return (torch.from_numpy(packed).to(device),
+            torch.as_tensor(np.asarray(powers, dtype=np.int64), device=device),
+            torch.from_numpy(host_ok).to(device))
+
+
+def readback(mask, tally):
+    """(mask bool [B] ndarray, tally as a Python int) on the host."""
+    return mask.cpu().numpy(), int(tally.item())
 
 
 def batch_verify_tally(pks, msgs, sigs, powers, device=None):
     """Host-facing fused entry: bytes -> (mask bool [B] ndarray, summed
-    voting power of valid lanes as a Python int). One host-to-device copy of
-    the packed plane (plus the powers and the host verdicts), one kernel
-    launch, one readback."""
+    voting power of valid lanes as a Python int). Host prep, one
+    host-to-device copy of the packed plane (plus the powers and the host
+    verdicts), one kernel launch, the tally, one readback."""
     dev = device_mod.resolve(device)
-    B = len(sigs)
-    if B == 0:
+    if len(sigs) == 0:
         return np.zeros(0, dtype=bool), 0
     packed, host_ok = tv.prepare_batch_packed(pks, msgs, sigs)
-    mask, tally = verify_tally_step_kernel(
-        torch.from_numpy(packed).to(dev),
-        torch.as_tensor(np.asarray(powers, dtype=np.int64), device=dev),
-        torch.from_numpy(host_ok).to(dev))
-    return mask.cpu().numpy(), int(tally.item())
+    return readback(*verify_tally_step_kernel(*upload(packed, powers, host_ok, dev)))

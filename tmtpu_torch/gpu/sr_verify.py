@@ -13,8 +13,9 @@ device never re-encodes.
 
 Split of labour:
 - host: lengths, the marker bit (cleared from s), s < L, A and R below p
-  and even, and the merlin transcript per lane that gives k (pure-Python
-  ``merlin``), packed into one ``[128, B]`` uint8 plane (pk | r | s | k);
+  and even, and the merlin transcript per lane that gives k (in C,
+  ``native.sr_challenges``; the pure-Python ``merlin`` in the plain
+  version), packed into one ``[128, B]`` uint8 plane (pk | r | s | k);
 - device: both decodes, the ladder R' = [s]B + [k](-A) and the coset
   equality, in the CUDA kernel (``kernel.sr_verify_packed``) or, for a CPU
   tensor, in ``sr_verify_core_compact`` below.
@@ -26,10 +27,12 @@ import numpy as np
 import torch
 
 from tmtpu_torch import device as device_mod
+from tmtpu_torch import native
 from tmtpu_torch.crypto import ed25519_ref as ref
 from tmtpu_torch.crypto.sr25519 import challenge_k
 from tmtpu_torch.gpu import curve, fe
-from tmtpu_torch.gpu.verify import base_table, digits_msb_device, lt_le, split_packed
+from tmtpu_torch.gpu.verify import (base_table, digits_msb_device, host_lanes, lt_le,
+                                    split_packed)
 
 L = ref.L
 P = ref.P
@@ -130,29 +133,14 @@ def plain_packed(packed):
 
 _P_LE = np.frombuffer(int.to_bytes(P, 32, "little"), dtype=np.uint8)
 _L_LE = np.frombuffer(int.to_bytes(L, 32, "little"), dtype=np.uint8)
-_ZERO32 = bytes(32)
-_ZERO64 = bytes(64)
 
 
-def prepare_sr_batch_packed(pks, msgs, sigs):
-    """Host prep: returns (numpy [128, B] uint8 plane, host_ok bool [B]).
-
-    Lanes with wrong lengths, no schnorrkel marker, s >= L, or A or R not a
-    canonical encoding (>= p or odd) get zero pk, r and s bytes and host_ok
-    False; their k is still the merlin challenge of those zero bytes."""
-    B = len(sigs)
-    pks_b = [bytes(p) for p in pks]
-    sigs_b = [bytes(s) for s in sigs]
-    len_ok = np.fromiter(
-        (len(pks_b[i]) == 32 and len(sigs_b[i]) == 64 for i in range(B)),
-        dtype=bool, count=B)
-    if not len_ok.all():
-        pks_b = [p if ok else _ZERO32 for p, ok in zip(pks_b, len_ok)]
-        sigs_b = [s if ok else _ZERO64 for s, ok in zip(sigs_b, len_ok)]
-    sig_arr = np.frombuffer(b"".join(sigs_b), dtype=np.uint8).reshape(B, 64)
-    pk_arr = np.frombuffer(b"".join(pks_b), dtype=np.uint8).reshape(B, 32).copy()
-    r_arr = sig_arr[:, :32].copy()
-    s_arr = sig_arr[:, 32:].copy()
+def _sr_lanes(pks, sigs):
+    """(pk_arr, r_arr, s_arr with the marker cleared, host_ok): lanes with
+    wrong lengths, no schnorrkel marker, s >= L, or A or R not a canonical
+    encoding (>= p or odd) get zero pk, r and s bytes and host_ok False."""
+    len_ok, pk_arr, r_arr, s_arr = host_lanes(pks, sigs)
+    pk_arr = pk_arr.copy()
     marker_ok = (s_arr[:, 31] & 0x80) != 0
     s_arr[:, 31] &= 0x7F
     host_ok = (
@@ -164,16 +152,39 @@ def prepare_sr_batch_packed(pks, msgs, sigs):
         s_arr[bad] = 0
         pk_arr[bad] = 0
         r_arr[bad] = 0
-    k_arr = np.frombuffer(
-        b"".join(challenge_k(p.tobytes(), bytes(m), r.tobytes()).to_bytes(32, "little")
-                 for p, m, r in zip(pk_arr, msgs, r_arr)),
-        dtype=np.uint8).reshape(B, 32)
-    packed = np.empty((128, B), dtype=np.uint8)
+    return pk_arr, r_arr, s_arr, host_ok
+
+
+def _sr_pack(pk_arr, r_arr, s_arr, k_arr, host_ok):
+    packed = np.empty((128, len(host_ok)), dtype=np.uint8)
     packed[0:32] = pk_arr.T
     packed[32:64] = r_arr.T
     packed[64:96] = s_arr.T
     packed[96:128] = k_arr.T
     return packed, host_ok
+
+
+def prepare_sr_batch_packed(pks, msgs, sigs):
+    """Host prep: returns (numpy [128, B] uint8 plane, host_ok bool [B]).
+
+    Rejected lanes get zero pk, r and s bytes and host_ok False; their k is
+    still the merlin challenge of those zero bytes. k comes from the port's
+    C library (``native.sr_challenges``)."""
+    pk_arr, r_arr, s_arr, host_ok = _sr_lanes(pks, sigs)
+    return _sr_pack(pk_arr, r_arr, s_arr, native.sr_challenges(pk_arr, r_arr, msgs),
+                    host_ok)
+
+
+def prepare_sr_batch_packed_plain(pks, msgs, sigs):
+    """The plain version of ``prepare_sr_batch_packed``: the same bytes,
+    with k from the pure-Python ``merlin``. The tests and the card's smoke
+    run compare the two; nothing on the main path calls it."""
+    pk_arr, r_arr, s_arr, host_ok = _sr_lanes(pks, sigs)
+    k_arr = np.frombuffer(
+        b"".join(challenge_k(p.tobytes(), bytes(m), r.tobytes()).to_bytes(32, "little")
+                 for p, m, r in zip(pk_arr, msgs, r_arr)),
+        dtype=np.uint8).reshape(len(host_ok), 32)
+    return _sr_pack(pk_arr, r_arr, s_arr, k_arr, host_ok)
 
 
 def batch_verify_sr(pks, msgs, sigs, device=None) -> np.ndarray:

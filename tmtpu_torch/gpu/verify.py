@@ -9,8 +9,9 @@ crypto/ed25519/ed25519.go:148-155; oracle ``ed25519_ref.verify``):
 
 Split of labour:
 - host: length checks, ``s < L``, canonical ``A.y``, SHA-512 and the
-  reduction mod L (``hashlib``), packed into one ``[128, B]`` uint8 plane
-  (pk | r | s | h) so the host-to-device hop is a single copy;
+  reduction mod L (in C, ``native.prep_ed25519``; ``hashlib`` in the plain
+  version), packed into one ``[128, B]`` uint8 plane (pk | r | s | h) so
+  the host-to-device hop is a single copy;
 - device: everything else, in the CUDA kernel (``kernel.py``) or, for a
   CPU tensor, in ``verify_core_compact`` below.
 """
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from tmtpu_torch import device as device_mod
+from tmtpu_torch import native
 from tmtpu_torch.crypto import ed25519_ref as ref
 from tmtpu_torch.gpu import curve, fe
 
@@ -122,34 +124,24 @@ def lt_le(arr: np.ndarray, bound_le: np.ndarray) -> np.ndarray:
     return diff.any(axis=1) & (arr[rows, idx] < bound_le[idx])
 
 
-def prepare_batch_packed(pks, msgs, sigs):
-    """Host prep: returns (numpy [128, B] uint8 plane, host_ok bool [B]).
-
-    Lanes with wrong lengths, s >= L or a non-canonical A.y get
-    well-formed dummy bytes and host_ok False; the device never sees those
-    checks. h = SHA-512(R || A || M) mod L, little-endian."""
+def host_lanes(pks, sigs):
+    """Lengths and byte rows of a batch (pks, sigs: bytes-like): (len_ok
+    bool [B], pk_arr, r_arr, s_arr, each [B, 32] uint8). Lanes with a wrong
+    length get zero bytes."""
     B = len(sigs)
-    pks_b = [bytes(p) for p in pks]
-    sigs_b = [bytes(s) for s in sigs]
-    len_ok = np.fromiter(
-        (len(pks_b[i]) == 32 and len(sigs_b[i]) == 64 for i in range(B)),
-        dtype=bool, count=B)
+    len_ok = ((np.fromiter(map(len, pks), dtype=np.int64, count=B) == 32)
+              & (np.fromiter(map(len, sigs), dtype=np.int64, count=B) == 64))
     if not len_ok.all():
-        pks_b = [p if ok else _ZERO32 for p, ok in zip(pks_b, len_ok)]
-        sigs_b = [s if ok else _ZERO64 for s, ok in zip(sigs_b, len_ok)]
-    sig_arr = np.frombuffer(b"".join(sigs_b), dtype=np.uint8).reshape(B, 64)
-    pk_arr = np.frombuffer(b"".join(pks_b), dtype=np.uint8).reshape(B, 32)
-    r_arr = sig_arr[:, :32].copy()
-    s_arr = sig_arr[:, 32:].copy()
-    host_ok = len_ok & lt_le(s_arr, _L_LE)
-    h_arr = np.frombuffer(
-        b"".join(
-            int.to_bytes(
-                int.from_bytes(hashlib.sha512(s[:32] + p + bytes(m)).digest(),
-                               "little") % L,
-                32, "little")
-            for s, p, m in zip(sigs_b, pks_b, msgs)),
-        dtype=np.uint8).reshape(B, 32)
+        pks = [p if ok else _ZERO32 for p, ok in zip(pks, len_ok)]
+        sigs = [s if ok else _ZERO64 for s, ok in zip(sigs, len_ok)]
+    sig_arr = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(B, 64)
+    pk_arr = np.frombuffer(b"".join(pks), dtype=np.uint8).reshape(B, 32)
+    return len_ok, pk_arr, sig_arr[:, :32].copy(), sig_arr[:, 32:].copy()
+
+
+def _pack(pk_arr, r_arr, s_arr, h_arr, host_ok):
+    """Zero s on rejected lanes, reject a non-canonical A.y, and stack the
+    four planes: (numpy [128, B] uint8, host_ok bool [B])."""
     if not host_ok.all():
         s_arr[~host_ok] = 0
     # canonicality of A.y (value < p) on the sign-masked encoding
@@ -159,12 +151,40 @@ def prepare_batch_packed(pks, msgs, sigs):
         (masked[:, 0] >= 0xED)
         & np.all(masked[:, 1:31] == 0xFF, axis=1)
         & (masked[:, 31] == 0x7F))
-    packed = np.empty((128, B), dtype=np.uint8)
+    packed = np.empty((128, len(host_ok)), dtype=np.uint8)
     packed[0:32] = pk_arr.T
     packed[32:64] = r_arr.T
     packed[64:96] = s_arr.T
     packed[96:128] = h_arr.T
     return packed, host_ok
+
+
+def prepare_batch_packed(pks, msgs, sigs):
+    """Host prep: returns (numpy [128, B] uint8 plane, host_ok bool [B]).
+
+    Lanes with wrong lengths, s >= L or a non-canonical A.y get
+    well-formed dummy bytes and host_ok False; the device never sees those
+    checks. h = SHA-512(R || A || M) mod L, little-endian, and s < L come
+    from the port's C library (``native.prep_ed25519``)."""
+    len_ok, pk_arr, r_arr, s_arr = host_lanes(pks, sigs)
+    h_arr, s_ok = native.prep_ed25519(pk_arr, r_arr, s_arr, msgs)
+    return _pack(pk_arr, r_arr, s_arr, h_arr, len_ok & s_ok)
+
+
+def prepare_batch_packed_plain(pks, msgs, sigs):
+    """The plain version of ``prepare_batch_packed``: the same bytes, with
+    h from ``hashlib`` and s < L from numpy on one core. The tests and the
+    card's smoke run compare the two; nothing on the main path calls it."""
+    len_ok, pk_arr, r_arr, s_arr = host_lanes(pks, sigs)
+    h_arr = np.frombuffer(
+        b"".join(
+            int.to_bytes(
+                int.from_bytes(hashlib.sha512(r.tobytes() + p.tobytes() + bytes(m)).digest(),
+                               "little") % L,
+                32, "little")
+            for r, p, m in zip(r_arr, pk_arr, msgs)),
+        dtype=np.uint8).reshape(len(len_ok), 32)
+    return _pack(pk_arr, r_arr, s_arr, h_arr, len_ok & lt_le(s_arr, _L_LE))
 
 
 def split_packed(packed):

@@ -1,0 +1,289 @@
+"""The port's C host prep: ``hostprep.c`` built with the system C compiler
+and bound with ctypes.
+
+The counterpart of the reference package's native host prep, with its two
+device-path entries, and the signature cache's store:
+
+- ``prep_ed25519``: h = SHA-512(R || A || M) mod L and s < L per lane
+  (ed25519 host prep, ``gpu/verify.py::prepare_batch_packed``);
+- ``sr_challenges``: the merlin transcript walk of an sr25519 verify, k per
+  lane (``gpu/sr_verify.py::prepare_sr_batch_packed``);
+- ``Store``: the sharded, lock-striped LRU set behind
+  ``crypto/sigcache.py``, and ``resolve``, which computes a flush's cache
+  keys (``sigcache.cache_key`` of every lane), looks them up in a store
+  and folds the flush's repeated misses onto their first lane in one
+  call; ``cache_keys`` is its key pass alone.
+
+The library is built at first use (``load``) into the gitignored
+``tmtpu_torch/gpu/build/host/``, named by a hash of the source, the flags,
+the compiler's path and version, and the machine and C library, so an
+edit rebuilds, an unchanged tree reuses it, and a library built on another
+machine is never loaded. There is no
+fallback: without a C compiler, or when the build fails or a symbol is
+missing, ``load`` raises with the compiler's message. Each entry runs on
+``min(8, os.cpu_count())`` threads unless told otherwise; its bytes do not
+depend on the thread count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import platform
+import shutil
+import subprocess
+import threading
+
+import numpy as np
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hostprep.c")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "gpu", "build", "host")
+CFLAGS = ["-O2", "-shared", "-fPIC", "-pthread"]
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # n, pks, rs, ss, msgs, moff, h_out, s_ok, nthreads
+    "tmtpu_prep_ed25519": [ctypes.c_size_t, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int],
+    # n, pks, rs, msgs, moff, k_out, nthreads
+    "tmtpu_sr_challenges": [ctypes.c_size_t, _P, _P, _P, _P, _P, ctypes.c_int],
+    # store, n, (types, toff), (pks, pkoff), (msgs, moff), (sigs, soff), keys_out,
+    # rep_out, nthreads -> hits
+    "tmtpu_cache_resolve": ([_P, ctypes.c_size_t, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             ctypes.c_int], ctypes.c_int64),
+    "tmtpu_cache_new": ([ctypes.c_int32, ctypes.c_int32], _P),
+    "tmtpu_cache_free": [_P],
+    "tmtpu_cache_clear": [_P],
+    "tmtpu_cache_size": ([_P], ctypes.c_int64),
+    "tmtpu_cache_resize": ([_P, ctypes.c_int32], ctypes.c_int64),
+    # store, n, keys, hit_out -> hits
+    "tmtpu_cache_lookup": ([_P, ctypes.c_size_t, _P, _P], ctypes.c_int64),
+    # allow (1), forbid (0) or ask (-1) -> the SHA extensions in use
+    "tmtpu_sha256_ni": ([ctypes.c_int], ctypes.c_int),
+    # store, n, keys, &evicted -> inserted
+    "tmtpu_cache_add": ([_P, ctypes.c_size_t, _P, _P], ctypes.c_int64),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _compiler() -> list:
+    """The command that compiles C: ``cc``, else ``gcc``, else ``g++ -x c``."""
+    for name in ("cc", "gcc"):
+        found = shutil.which(name)
+        if found:
+            return [found]
+    found = shutil.which("g++")
+    if found:
+        return [found, "-x", "c"]
+    raise RuntimeError("no C compiler (cc, gcc or g++) on PATH: the port's "
+                       "host prep is C and has no other version on the main path")
+
+
+def _toolchain(cmd: list) -> str:
+    """What a built library depends on besides its source and flags: the
+    compiler's path and ``--version``, the machine and the C library."""
+    proc = subprocess.run([*cmd, "--version"], capture_output=True, text=True)
+    return "\n".join([" ".join(cmd), proc.stdout, platform.machine(),
+                      " ".join(platform.libc_ver())])
+
+
+def lib_path(src: str = SRC, out_dir: str = BUILD_DIR) -> str:
+    h = hashlib.sha256(" ".join(CFLAGS).encode())
+    h.update(_toolchain(_compiler()).encode())
+    with open(src, "rb") as fh:
+        h.update(fh.read())
+    return os.path.join(out_dir, f"hostprep-{h.hexdigest()[:16]}.so")
+
+
+def build(src: str = SRC, out_dir: str = BUILD_DIR) -> str:
+    """Compile ``src`` into ``out_dir`` unless it is built already; returns
+    the library's path, raises with the compiler's output on failure. The
+    library is compiled to a temporary name and renamed into place: the
+    dynamic loader caches libraries by inode, so one rewritten in place
+    could hand a process that loaded it before the stale code."""
+    out = lib_path(src, out_dir)
+    if os.path.exists(out):
+        return out
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [*_compiler(), *CFLAGS, "-o", tmp, src]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(f"building the host prep failed ({' '.join(cmd)}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The built library with every entry bound (built now if needed)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, sig in _SIGNATURES.items():
+                argtypes, restype = sig if isinstance(sig, tuple) else (sig, None)
+                fn = getattr(lib, name)  # AttributeError: a missing symbol
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+        return _lib
+
+
+def _threads(nthreads) -> int:
+    return min(8, os.cpu_count() or 1) if nthreads is None else int(nthreads)
+
+
+def _rows(arr, n: int) -> np.ndarray:
+    """``arr`` as a C-contiguous [n, 32] uint8 array; raises otherwise."""
+    out = np.ascontiguousarray(arr, dtype=np.uint8)
+    if out.shape != (n, 32):
+        raise ValueError(f"expected [{n}, 32] uint8 rows, got shape {out.shape}")
+    return out
+
+
+def _concat(parts, n: int):
+    """(offsets [n + 1] uint64, the bytes-like parts end to end) for ctypes."""
+    if len(parts) != n:
+        raise ValueError(f"expected {n} byte strings, got {len(parts)}")
+    off = np.zeros(n + 1, dtype=np.uint64)
+    np.cumsum(np.fromiter(map(len, parts), dtype=np.uint64, count=n), out=off[1:])
+    blob = b"".join(parts)
+    return off, np.frombuffer(blob, dtype=np.uint8) if blob else np.zeros(1, np.uint8)
+
+
+def prep_ed25519(pk_arr, r_arr, s_arr, msgs, nthreads=None):
+    """h = SHA-512(R || A || M) mod L and s < L for every lane.
+
+    pk_arr, r_arr, s_arr: [B, 32] uint8; msgs: B bytes-like messages. Returns
+    (h_arr [B, 32] uint8 little-endian, s_ok bool [B])."""
+    lib = load()
+    n = len(msgs)
+    pk_arr, r_arr, s_arr = (_rows(a, n) for a in (pk_arr, r_arr, s_arr))
+    moff, mbuf = _concat(msgs, n)
+    h_out = np.empty((n, 32), dtype=np.uint8)
+    s_ok = np.empty(n, dtype=np.uint8)
+    lib.tmtpu_prep_ed25519(n, pk_arr.ctypes.data, r_arr.ctypes.data, s_arr.ctypes.data,
+                           mbuf.ctypes.data, moff.ctypes.data, h_out.ctypes.data,
+                           s_ok.ctypes.data, _threads(nthreads))
+    return h_out, s_ok.astype(bool)
+
+
+def sr_challenges(pk_arr, r_arr, msgs, nthreads=None) -> np.ndarray:
+    """The sr25519 verify challenge k = merlin challenge mod L for every
+    lane. pk_arr, r_arr: [B, 32] uint8; msgs: B bytes-like messages. Returns k_arr
+    [B, 32] uint8 little-endian."""
+    lib = load()
+    n = len(msgs)
+    pk_arr, r_arr = _rows(pk_arr, n), _rows(r_arr, n)
+    moff, mbuf = _concat(msgs, n)
+    k_out = np.empty((n, 32), dtype=np.uint8)
+    lib.tmtpu_sr_challenges(n, pk_arr.ctypes.data, r_arr.ctypes.data, mbuf.ctypes.data,
+                            moff.ctypes.data, k_out.ctypes.data, _threads(nthreads))
+    return k_out
+
+
+def resolve(store, types, pks, msgs, sigs, nthreads=None):
+    """One flush's keys (``sigcache.cache_key`` of every lane; ``types`` the
+    curve names, the rest byte strings), looked up in order in ``store``
+    (a ``Store``; a hit refreshes its key; None: no lookups): (keys [B, 32]
+    uint8, rep int32 [B]), rep -1 for a hit and else the flush's first
+    lane that missed with the same key."""
+    lib = load()
+    n = len(types)
+    names = {t: t.encode() for t in set(types)}
+    fields = [_concat([names[t] for t in types], n), _concat(pks, n),
+              _concat(msgs, n), _concat(sigs, n)]
+    if any(int(np.diff(off).max(initial=0)) >= 1 << 32 for off, _ in fields):
+        raise ValueError("a cache key field is 2^32 bytes or longer")
+    args = [p for off, buf in fields for p in (buf.ctypes.data, off.ctypes.data)]
+    keys = np.empty((n, 32), dtype=np.uint8)
+    rep = np.empty(n, dtype=np.int32)
+    hits = lib.tmtpu_cache_resolve(None if store is None else store._h, n, *args,
+                                   keys.ctypes.data, rep.ctypes.data, _threads(nthreads))
+    if hits < 0:
+        raise MemoryError("the signature cache's resolve is out of memory")
+    return keys, rep
+
+
+def sha256_ni(allow=None) -> bool:
+    """Whether the cache keys hash with the CPU's SHA extensions (chosen
+    when the library loads, where the CPU has them); ``allow`` False
+    switches to the portable C, True back. The keys' bytes are the same."""
+    return bool(load().tmtpu_sha256_ni(-1 if allow is None else int(bool(allow))))
+
+
+def cache_keys(types, pks, msgs, sigs, nthreads=None) -> np.ndarray:
+    """``sigcache.cache_key`` of every lane: ``types`` the curve names
+    (str), ``pks``, ``msgs``, ``sigs`` byte strings. Returns [B, 32] uint8,
+    one key a row."""
+    return resolve(None, types, pks, msgs, sigs, nthreads)[0]
+
+
+def _key_rows(keys) -> np.ndarray:
+    """32-byte keys (a list of bytes, or [B, 32] uint8) as C-contiguous rows."""
+    if isinstance(keys, np.ndarray):
+        rows = np.ascontiguousarray(keys, dtype=np.uint8)
+    else:
+        rows = np.frombuffer(b"".join(keys), dtype=np.uint8) if keys else np.zeros(0, np.uint8)
+    rows = rows.reshape(-1, 32) if rows.size else np.zeros((0, 32), np.uint8)
+    if rows.shape[0] != len(keys):
+        raise ValueError("cache keys are 32 bytes each")
+    return rows
+
+
+class Store:
+    """The C signature-cache store: ``shards`` (a power of two) LRU sets of
+    at most ``cap`` 32-byte keys each, the key's first byte picking the
+    shard, each shard behind its own mutex. Freed with the object."""
+
+    def __init__(self, shards: int, cap: int):
+        if shards < 1 or shards & (shards - 1) or not 1 <= cap < 1 << 30:
+            raise ValueError(f"bad store shape: {shards} shards of {cap}")
+        self._lib = load()
+        self._h = self._lib.tmtpu_cache_new(shards, cap)
+        if not self._h:
+            raise MemoryError("cannot allocate the signature cache")
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.tmtpu_cache_free(self._h)
+            self._h = None
+
+    def lookup(self, keys) -> np.ndarray:
+        """bool [B]: which keys are present; each hit refreshes its key."""
+        rows = _key_rows(keys)
+        hit = np.empty(len(rows), dtype=np.uint8)
+        self._lib.tmtpu_cache_lookup(self._h, len(rows), rows.ctypes.data, hit.ctypes.data)
+        return hit.astype(bool)
+
+    def add(self, keys):
+        """Insert the keys in order, refreshing those already there: (new
+        keys, evicted keys)."""
+        rows = _key_rows(keys)
+        evicted = ctypes.c_int64(0)
+        inserted = self._lib.tmtpu_cache_add(self._h, len(rows), rows.ctypes.data,
+                                             ctypes.byref(evicted))
+        if inserted < 0:
+            raise MemoryError("the signature cache is out of memory")
+        return inserted, evicted.value
+
+    def resize(self, cap: int) -> int:
+        """A new cap a shard; returns the keys evicted."""
+        if not 1 <= cap < 1 << 30:
+            raise ValueError(f"bad shard cap {cap}")
+        evicted = self._lib.tmtpu_cache_resize(self._h, cap)
+        if evicted < 0:
+            raise MemoryError("the signature cache is out of memory")
+        return evicted
+
+    def clear(self) -> None:
+        self._lib.tmtpu_cache_clear(self._h)
+
+    def size(self) -> int:
+        return self._lib.tmtpu_cache_size(self._h)
