@@ -20,6 +20,20 @@ Drives the port's three main paths, as a validator would, through
    ed25519, sr25519 and secp256k1 CUDA kernels, and the whole bitarray
    packed on the card.
 
+Then the voting-power tally past 2^63 (8 and 9 relayed copies of one
+precommit at 2^60, with the cache on and off) is checked on the card, and
+the port's sidecar daemon is driven as node processes would drive it
+(``python -m tmtpu_torch sidecar`` in a process of its own, reached with
+the port's client over a unix socket): (a) the 10,000-vote ed25519 set
+with tally, five round trips on a cache-off daemon, then (b) four clients
+at once sending those 10,000 lanes on a fresh cache-on daemon with a fixed
+gather window (one dispatch of 40,000 lanes, one launch of 10,000), one
+more request (the commit flush over the wire: hits but for the corrupted
+lanes) and (c) the mixed-curve set as one request a curve; every mask,
+tally, cache breakdown and launch count is checked, the codec and the
+in-process engine are timed alone, and each daemon must exit 0 on
+SIGTERM.
+
 Each flush runs with every launch counter set to 0 just before it and read
 just after. Then each kernel is held against its plain PyTorch version on
 the same planes at each width its paths give it, at 10,000 lanes, at 1, 3,
@@ -39,13 +53,19 @@ the card's name and power limit, and, last, ``{"ok": true, "device":
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import multiprocessing
 import os
+import queue
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from typing import Callable, NamedTuple
 
@@ -64,6 +84,9 @@ from tmtpu_torch.gpu import build, k1_kernel, kernel, sharding
 from tmtpu_torch.gpu import k1_verify as kv
 from tmtpu_torch.gpu import sr_verify as sv
 from tmtpu_torch.gpu import verify as tv
+from tmtpu_torch.sidecar import protocol as sc_proto
+from tmtpu_torch.sidecar.client import SidecarClient
+from tmtpu_torch.sidecar.server import launch_counts as launches
 from tmtpu_torch.types.vote import MAX_VOTES_COUNT, PRECOMMIT, vote_sign_bytes
 
 CHAIN_ID = "tmtpu-torch-smoke"
@@ -121,6 +144,12 @@ RELAY_EVERY = 4  # the ingestion flush gets every 4th vote twice
 N_SR, N_K1 = 500, 500
 BAD_PER_CURVE = 5
 CURVE_ORDER = (crypto_batch.ED25519, crypto_batch.SR25519, crypto_batch.SECP256K1)
+
+P60 = 2**60  # MAX_TOTAL_VOTING_POWER of the reference (tmtpu/types/validator.py)
+
+SIDECAR_CLIENTS = 4  # validator processes sharing the card in phase (b)
+GATHER_MS = 2000     # the fixed gather window that lets all four ride one dispatch
+READY_TIMEOUT_S = 300
 
 
 def check(cond: bool, what: str) -> None:
@@ -260,10 +289,6 @@ def time_host(fn, runs: int, before=None) -> float:
 def reset_launches() -> None:
     kernel.LAUNCHES = kernel.SR_LAUNCHES = k1_kernel.LAUNCHES = 0
 
-
-def launches() -> dict:
-    return {"ed25519_verify": kernel.LAUNCHES, "sr25519_verify": kernel.SR_LAUNCHES,
-            "k1_verify": k1_kernel.LAUNCHES}
 
 
 class Curve(NamedTuple):
@@ -426,8 +451,8 @@ def phase_split(keys, msgs, sigs, dev) -> dict:
         times[name] = (time.perf_counter() - t0) * 1e3
         return out
 
-    types, pks, _, _ = phase("item fields (the keys' bytes())",
-                             lambda: crypto_batch.item_fields(items))
+    types, pks = phase("item fields (each key's type and bytes(), taken in add)",
+                       lambda: ([k.type_value() for k in keys], [k.bytes() for k in keys]))
     ks, rep = phase("cache keys, lookups and dedup (one C call)",
                     lambda: cache.resolve(types, pks, msgs, sigs))
     check(rep.tolist() == list(range(len(items))), "phase split: a cold cache")
@@ -508,6 +533,313 @@ def verify_once(keys, msgs, sigs, expect, cold, card) -> dict:
     return {"ingest_launches": ingest_launches["ed25519_verify"],
             "commit_launches": commit_launches["ed25519_verify"],
             "ingest_ms": ingest_ms, "commit_ms": commit_ms}
+
+
+def tally_past_2_63(key, msg, sig) -> dict:
+    """One ed25519 precommit relayed 8 and 9 times at 2^60 each, with the
+    cache on (the copies folded onto one lane of power 2^63 or more) and
+    off (one lane each): the tally must be the exact integer, where an
+    int64 sum wraps. Returns {case: tally}."""
+    out = {}
+    for on in (True, False):
+        sigcache.DEFAULT.set_enabled(on)
+        for copies in (8, 9):
+            sigcache.invalidate_all()
+            bv = crypto_batch.new_batch_verifier()
+            for _ in range(copies):
+                bv.add(key, msg, sig, P60)
+            all_ok, mask, tally = bv.verify_tally()
+            case = f"{copies} copies, cache {'on' if on else 'off'}"
+            check(all_ok and mask == [True] * copies and tally == copies * P60,
+                  f"tally past 2^63, {case}: {tally}")
+            check(bv.cache_stats["dispatched"] == (1 if on else copies),
+                  f"tally past 2^63, {case}: {bv.cache_stats}")
+            out[case] = tally
+    sigcache.DEFAULT.set_enabled(True)
+    sigcache.invalidate_all()
+    return out
+
+
+class Daemon:
+    """``python -m tmtpu_torch sidecar`` in a process of its own, on a unix
+    socket in a fresh temporary directory (tcp on 127.0.0.1 when that path
+    is too long for a socket). Its stdout is read on a thread; its stderr
+    goes to a file, printed when anything fails."""
+
+    def __init__(self, name: str, *args: str):
+        self.name = name
+        self.dir = tempfile.mkdtemp(prefix="tmtpu-sc-")
+        sock = os.path.join(self.dir, "s.sock")
+        addr = f"unix://{sock}" if len(sock) < 100 else "tcp://127.0.0.1:0"
+        self.err_path = os.path.join(self.dir, "stderr.log")
+        self.err = open(self.err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "tmtpu_torch", "sidecar", "--addr", addr,
+             "--home", self.dir, *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=self.err, text=True)
+        self.lines: queue.Queue = queue.Queue()
+        threading.Thread(target=self._pump, daemon=True).start()
+        t0 = time.perf_counter()
+        try:
+            ready = self.lines.get(timeout=READY_TIMEOUT_S)
+        except queue.Empty:
+            ready = ""
+        if not ready.startswith("Sidecar listening on "):
+            err = self.stderr()
+            self.kill()
+            check(False, f"daemon {name} ready ({ready!r}; {err})")
+        self.start_s = time.perf_counter() - t0
+        self.addr = ready.split()[3]
+        self.warm_s = float(ready.split("warm_s=")[1].split()[0])
+        print(f"sidecar daemon {name}: ready in {self.start_s:.1f} s "
+              f"(warm-up {self.warm_s:.3f} s): {ready.strip()}")
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            self.lines.put(line)
+
+    def stderr(self) -> str:
+        self.err.flush()
+        with open(self.err_path) as fh:
+            return fh.read()[-4000:]
+
+    def client(self, name: str) -> SidecarClient:
+        return SidecarClient(self.addr, client_id=name, connect_timeout_s=10.0,
+                             request_deadline_s=120.0)
+
+    def stats(self) -> dict:
+        c = self.client("stats")
+        try:
+            return c.stats()
+        finally:
+            c.close()
+
+    def terminate(self) -> int:
+        """SIGTERM; the daemon must drain and exit 0."""
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        check(rc == 0, f"daemon {self.name} exits 0 on SIGTERM (rc {rc}; {self.stderr()})")
+        return rc
+
+    def kill(self) -> None:
+        """Stop the process if it still runs, and remove its directory."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    return {k: after["engine"]["launches"][k] - before["engine"]["launches"][k]
+            for k in after["engine"]["launches"]}
+
+
+def sidecar_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
+    """The daemon, driven over its socket by the port's client. ``mixed`` is
+    {curve: (pks, msgs, sigs, expect)} of the mixed-curve set. Returns the
+    times and counts."""
+    n = len(sigs)
+    lanes = list(zip(pks, msgs, sigs, [POWER] * n))
+    want_mask = expect.tolist()
+    want_tally = POWER * int(expect.sum())
+    bad = int((~expect).sum())
+    out = {}
+    daemons = []
+    try:
+        # (a) cache off: every round trip verifies the 10,000 lanes
+        x = Daemon("cache off", "--no-sigcache")
+        daemons.append(x)
+        out["warm_s"] = x.warm_s
+        out["start_s"] = x.start_s
+        c = x.client("validator-0")
+        rtts = []
+        before = x.stats()
+        for _ in range(5):
+            t0 = time.perf_counter()
+            mask, tallied, info = c.verify(crypto_batch.ED25519, lanes, tally=True, deadline_s=60.0)
+            rtts.append((time.perf_counter() - t0) * 1e3)
+            check(mask == want_mask and tallied == want_tally,
+                  f"sidecar (a): mask and tally ({tallied})")
+            check(info["dispatch_lanes"] == n and info["dispatch_clients"] == 1,
+                  f"sidecar (a): one dispatch of the request's lanes ({info})")
+        c.close()
+        after = x.stats()
+        check(after["engine"]["last_cache_stats"] == {"lanes": n, "hits": 0, "dedup": 0,
+                                                       "dispatched": n},
+              f"sidecar (a): cache_stats {after['engine']['last_cache_stats']}")
+        check(launch_delta(before, after) == {"ed25519_verify": 5, "sr25519_verify": 0,
+                                              "k1_verify": 0},
+              f"sidecar (a): one launch a request ({launch_delta(before, after)})")
+        check(after["sigcache"]["enabled"] is False and after["sigcache"]["hits"] == 0,
+              "sidecar (a): the cache is off")
+        out["rtt_ms"] = statistics.median(rtts)
+        out["rtt_ms_all"] = rtts
+        print(f"sidecar (a): {n} lanes with tally, cache-off daemon: round trip "
+              f"{out['rtt_ms']:.3f} ms median of 5 ({', '.join(f'{t:.1f}' for t in rtts)}), "
+              f"mask and tally {tallied} exact, cache_stats {after['engine']['last_cache_stats']}, "
+              f"launches {launch_delta(before, after)} [{card}]")
+        x.terminate()
+
+        # (b) four clients at once on a fresh cache, one dispatch
+        y = Daemon("cache on", "--gather-ms", str(GATHER_MS))
+        daemons.append(y)
+        before = y.stats()
+        results, errors = {}, []
+        barrier = threading.Barrier(SIDECAR_CLIENTS)
+
+        def run(k):
+            cl = y.client(f"validator-{k}")
+            try:
+                barrier.wait(timeout=30)
+                t0 = time.perf_counter()
+                results[k] = cl.verify(crypto_batch.ED25519, lanes, tally=True, deadline_s=60.0)
+                results[k] += ((time.perf_counter() - t0) * 1e3,)
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(repr(exc))
+            finally:
+                cl.close()
+
+        threads = [threading.Thread(target=run, args=(k,)) for k in range(SIDECAR_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+        check(not errors and len(results) == SIDECAR_CLIENTS, f"sidecar (b): replies ({errors})")
+        after = y.stats()
+        ids = {r[2]["dispatch_id"] for r in results.values()}
+        for k, (mask, tallied, info, _) in results.items():
+            check(mask == want_mask and tallied == want_tally,
+                  f"sidecar (b): client {k}'s mask and tally ({tallied})")
+            check(info["dispatch_clients"] == SIDECAR_CLIENTS
+                  and info["dispatch_lanes"] == SIDECAR_CLIENTS * n,
+                  f"sidecar (b): one dispatch of {SIDECAR_CLIENTS} clients ({info})")
+        check(len(ids) == 1, f"sidecar (b): one dispatch id ({ids})")
+        stats_b = after["engine"]["last_cache_stats"]
+        check(stats_b == {"lanes": SIDECAR_CLIENTS * n, "hits": 0,
+                          "dedup": (SIDECAR_CLIENTS - 1) * n, "dispatched": n},
+              f"sidecar (b): cache_stats {stats_b}")
+        check(launch_delta(before, after) == {"ed25519_verify": 1, "sr25519_verify": 0,
+                                              "k1_verify": 0},
+              f"sidecar (b): one launch ({launch_delta(before, after)})")
+        out["four_clients_ms"] = max(r[3] for r in results.values())
+        print(f"sidecar (b): {SIDECAR_CLIENTS} clients x {n} lanes at once, gather window "
+              f"{GATHER_MS} ms: one dispatch of {SIDECAR_CLIENTS * n} lanes, cache_stats "
+              f"{stats_b}, launches {launch_delta(before, after)}, every mask and tally exact; "
+              f"last reply {out['four_clients_ms']:.1f} ms after the start [{card}]")
+
+        # the commit flush over the wire: the same triples again
+        before = after
+        c = y.client("validator-0")
+        t0 = time.perf_counter()
+        mask, tallied, info = c.verify(crypto_batch.ED25519, lanes, tally=True, deadline_s=60.0)
+        out["commit_rtt_ms"] = (time.perf_counter() - t0) * 1e3
+        c.close()
+        after = y.stats()
+        check(mask == want_mask and tallied == want_tally, "sidecar commit: mask and tally")
+        check(after["engine"]["last_cache_stats"] == {"lanes": n, "hits": n - bad, "dedup": 0,
+                                                       "dispatched": bad},
+              f"sidecar commit: cache_stats {after['engine']['last_cache_stats']}")
+        check(after["sigcache"]["hits"] - before["sigcache"]["hits"] == n - bad,
+              "sidecar commit: the daemon's hit count")
+        print(f"sidecar commit flush: {n} lanes again, cache_stats "
+              f"{after['engine']['last_cache_stats']}, launches {launch_delta(before, after)}; "
+              f"round trip {out['commit_rtt_ms']:.3f} ms (gather window {GATHER_MS} ms "
+              f"included) [{card}]")
+
+        # (c) the mixed-curve set, one request a curve, at once
+        before = after
+        got, errors = {}, []
+
+        def run_curve(kind):
+            m_pks, m_msgs, m_sigs, _ = mixed[kind]
+            cl = y.client(f"mixed-{kind}")
+            try:
+                got[kind] = cl.verify(kind, list(zip(m_pks, m_msgs, m_sigs,
+                                                     [POWER] * len(m_sigs))),
+                                      tally=True, deadline_s=60.0)
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(repr(exc))
+            finally:
+                cl.close()
+
+        threads = [threading.Thread(target=run_curve, args=(k,)) for k in CURVE_ORDER]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+        check(not errors and len(got) == 3, f"sidecar (c): replies ({errors})")
+        after = y.stats()
+        for kind, (mask, tallied, info) in got.items():
+            want = mixed[kind][3]
+            check(mask == want.tolist() and tallied == POWER * int(want.sum()),
+                  f"sidecar (c): {kind} mask and tally")
+        check(launch_delta(before, after) == {"ed25519_verify": 1, "sr25519_verify": 1,
+                                              "k1_verify": 1},
+              f"sidecar (c): one launch of each kernel ({launch_delta(before, after)})")
+        print(f"sidecar (c): mixed-curve set as one request a curve "
+              f"({', '.join(f'{k} {len(mixed[k][2])}' for k in CURVE_ORDER)}): every mask and "
+              f"tally exact, launches {launch_delta(before, after)}")
+        y.terminate()
+        print("sidecar daemons: both drained and exited 0 on SIGTERM")
+    except Exception:
+        for d in daemons:
+            print(f"--- daemon {d.name} stderr ---\n{d.stderr()}", file=sys.stderr)
+        raise
+    finally:
+        for d in daemons:
+            d.kill()
+    return out
+
+
+def codec_and_engine(pks, msgs, sigs, expect, card) -> dict:
+    """The codec and the daemon's engine on the 10,000-lane request, each
+    alone (medians of 5): the port client's encode, the reference-style
+    generic encode (Lane objects), the generic decode and the columnar
+    decode of the frame, and the engine's in-process flush of the raw
+    lanes, cold and with the cache off."""
+    n = len(sigs)
+    powers = [POWER] * n
+    frame = sc_proto.encode_verify_frame(1, crypto_batch.ED25519, True, 60000, pks, msgs, sigs,
+                                         powers)
+    generic = sc_proto.VerifyRequest(
+        request_id=1, curve=crypto_batch.ED25519, tally=True, deadline_ms=60000,
+        lanes=[sc_proto.Lane(pub_key=a, msg=b, sig=c, power=d)
+               for a, b, c, d in zip(pks, msgs, sigs, powers)])
+    check(sc_proto.encode_frame(generic) == frame, "columnar encode == generic encode")
+    body = sc_proto.FrameReader(io.BytesIO(frame)).read_body()
+    check(sc_proto.decode_verify_columns(body)
+          == sc_proto.columns_of(sc_proto.decode_frame(body)), "columnar decode == generic decode")
+    t = {
+        "encode_ms": time_host(lambda: sc_proto.encode_verify_frame(
+            1, crypto_batch.ED25519, True, 60000, pks, msgs, sigs, powers), 5),
+        "generic_encode_ms": time_host(lambda: sc_proto.encode_frame(generic), 5),
+        "generic_decode_ms": time_host(lambda: sc_proto.decode_frame(body), 5),
+        "columnar_decode_ms": time_host(lambda: sc_proto.decode_verify_columns(body), 5),
+        "frame_bytes": len(frame),
+    }
+
+    def engine():
+        return crypto_batch.verify_lanes(crypto_batch.ED25519, pks, msgs, sigs, powers, True)
+    mask, tallied, _ = engine()
+    check(mask == expect.tolist() and tallied == POWER * int(expect.sum()),
+          "engine: mask and tally")
+    t["engine_cold_ms"] = time_host(engine, 5, before=sigcache.invalidate_all)
+    sigcache.DEFAULT.set_enabled(False)
+    t["engine_cache_off_ms"] = time_host(engine, 5)
+    sigcache.DEFAULT.set_enabled(True)
+    print(f"sidecar codec, {n} lanes ({len(frame)} B frame), medians of 5 run alone: port client "
+          f"encode {t['encode_ms']:.3f} ms (generic encode {t['generic_encode_ms']:.3f}), "
+          f"generic decode {t['generic_decode_ms']:.3f}, columnar decode "
+          f"{t['columnar_decode_ms']:.3f}; the daemon's engine (in-process flush of the raw "
+          f"lanes) cold {t['engine_cold_ms']:.3f}, cache off {t['engine_cache_off_ms']:.3f} "
+          f"[{card}]")
+    return t
 
 
 def main() -> int:
@@ -612,6 +944,10 @@ def main() -> int:
 
     # 4c. path 2: one height verified once
     once = verify_once(keys, msgs, sigs, expect, cold, card)
+
+    # 4d. the tally past 2^63 on the card
+    big = tally_past_2_63(keys[1], msgs[1], sigs[1])
+    print("tally past 2^63 on the card, exact: " + ", ".join(f"{k}: {v}" for k, v in big.items()))
 
     # 5. the ed25519 kernel against plain on the card, and its times
     ed_entry = check_kernel(CURVES[crypto_batch.ED25519], pks, msgs, sigs, expect,
@@ -744,7 +1080,19 @@ def main() -> int:
         entry["mixed_e2e_ms"] = mixed_ms
         entry["mixed_e2e_ms_cache_off"] = mixed_off_ms
 
-    # 11. kernels line, card and result
+    # 11. the sidecar daemon: codec and engine alone, then phases (a)-(c)
+    sigcache.invalidate_all()
+    sidecar = codec_and_engine(pks, msgs, sigs, expect, card)
+    mixed = {kind: args_of(kind) + (m_expect[lanes_of[kind]],) for kind in CURVE_ORDER}
+    sidecar.update(sidecar_phase(pks, msgs, sigs, expect, mixed, card))
+    print(f"sidecar round trip {sidecar['rtt_ms']:.3f} ms against the in-process flush of the "
+          f"same run: cold {e2e_ms:.3f} ms, cache off {e2e_off_ms:.3f} ms; the engine alone "
+          f"cold {sidecar['engine_cold_ms']:.3f}, cache off "
+          f"{sidecar['engine_cache_off_ms']:.3f} [{card}]")
+    entries[0]["sidecar"] = sidecar
+    entries[0]["tally_past_2_63"] = big
+
+    # 12. kernels line, card and result
     print(json.dumps({"kernels": entries}))
     print(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(smi_line())

@@ -2,15 +2,18 @@
 tmtpu/crypto/batch.py (``BatchVerifier`` with its verify-once resolve,
 ``TPUBatchVerifier``, ``new_batch_verifier``).
 
-``add`` items (pubkey object, msg, sig[, power]) and resolve them at once:
-``verify`` returns the per-item mask, ``verify_tally`` also the summed
-voting power of the valid items. Every flush goes through the process-wide
-signature cache first (``sigcache.DEFAULT``; its keys, lookups and
-in-flush dedup are one C call): a triple verified before costs no lane,
-identical triples in one flush share one lane with their powers folded
-into it, and successes are inserted on the way out. The lanes left split by curve, as
-the reference's ``_split`` does, with one device dispatch per curve
-present: ed25519 to ``sharding.batch_verify_tally`` (or
+``add`` items (pubkey object, msg, sig[, power]), or ``add_lanes`` one
+curve's raw columns (pubkey bytes, msgs, sigs, powers, as the sidecar
+daemon receives them), and resolve them at once: ``verify`` returns the
+per-item mask, ``verify_tally`` also the summed voting power of the valid
+items, an exact Python int however large. Both kinds of add fill the same
+columns and take the same resolve. Every flush goes through the
+process-wide signature cache first (``sigcache.DEFAULT``; its keys,
+lookups and in-flush dedup are one C call): a triple verified before costs
+no lane, identical triples in one flush share one lane with their powers
+folded into it, and successes are inserted on the way out. The lanes left
+split by curve, as the reference's ``_split`` does, with one device
+dispatch per curve present: ed25519 to ``sharding.batch_verify_tally`` (or
 ``verify.batch_verify``), sr25519 to ``sr_verify.batch_verify_sr``,
 secp256k1 to ``k1_verify.batch_verify_k1``. This slice has no breaker, no
 serial CPU fallback, no multi-device routing, no metrics and no timeline
@@ -20,6 +23,7 @@ too, which gives the same mask.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -31,61 +35,105 @@ ED25519 = "ed25519"
 SR25519 = "sr25519"
 SECP256K1 = "secp256k1"
 
+# the public key sizes the reference's key classes require
+# (tmtpu/crypto/{ed25519,sr25519,secp256k1}.py, PUB_KEY_SIZE)
+PUB_KEY_SIZES = {ED25519: 32, SR25519: 32, SECP256K1: 33}
 
-def item_fields(items):
-    """The cache-key fields of (pubkey, msg, sig, power) items: (curve
-    names, pubkey bytes, msgs, sigs)."""
-    return ([it[0].type_value() for it in items], [it[0].bytes() for it in items],
-            [it[1] for it in items], [it[2] for it in items])
+
+class Lanes:
+    """A flush's columns: curve names, pubkey bytes, msgs, sigs, powers."""
+
+    __slots__ = ("types", "pks", "msgs", "sigs", "powers")
+
+    def __init__(self, types=None, pks=None, msgs=None, sigs=None, powers=None):
+        self.types: List[str] = types if types is not None else []
+        self.pks: List[bytes] = pks if pks is not None else []
+        self.msgs: List[bytes] = msgs if msgs is not None else []
+        self.sigs: List[bytes] = sigs if sigs is not None else []
+        self.powers: List[int] = powers if powers is not None else []
+
+    def __len__(self) -> int:
+        return len(self.sigs)
+
+    def take(self, idx) -> "Lanes":
+        """The lanes at positions ``idx``, in that order (new lists)."""
+        return Lanes(*([col[i] for i in idx] for col in
+                       (self.types, self.pks, self.msgs, self.sigs, self.powers)))
 
 
 class BatchVerifier:
-    """Accumulate (pubkey, msg, sig, power) items, then verify at once
+    """Accumulate (pubkey, msg, sig, power) lanes, then verify at once
     through the verify-once resolve. ``cache_stats`` holds the last
     flush's breakdown: lanes, hits, dedup and dispatched."""
 
     def __init__(self):
-        self._items: List[Tuple[object, bytes, bytes, int]] = []
+        self._lanes = Lanes()
         self.cache_stats: Dict = {"lanes": 0, "hits": 0, "dedup": 0, "dispatched": 0}
 
     def add(self, pub_key, msg: bytes, sig: bytes, power: int = 0) -> None:
-        self._items.append((pub_key, bytes(msg), bytes(sig), int(power)))
+        lanes = self._lanes
+        lanes.types.append(pub_key.type_value())
+        lanes.pks.append(pub_key.bytes())
+        lanes.msgs.append(bytes(msg))
+        lanes.sigs.append(bytes(sig))
+        lanes.powers.append(int(power))
+
+    def add_lanes(self, curve: str, pks, msgs, sigs, powers) -> None:
+        """Add one curve's raw lanes: pubkey bytes, msgs, sigs and powers,
+        equal-length lists of bytes and ints, taken as they are. Raises
+        ValueError, adding nothing, for an unknown curve or a key of the
+        wrong size, as the reference's key constructors do when its sidecar
+        engine builds a key object from each lane."""
+        size = PUB_KEY_SIZES.get(curve)
+        if size is None:
+            raise ValueError(f"unsupported key type {curve!r}")
+        if not len(pks) == len(msgs) == len(sigs) == len(powers):
+            raise ValueError("lane columns differ in length")
+        if any(len(pk) != size for pk in pks):
+            raise ValueError(f"{curve} pubkey must be {size} bytes")
+        lanes = self._lanes
+        lanes.types.extend(itertools.repeat(curve, len(pks)))
+        lanes.pks.extend(pks)
+        lanes.msgs.extend(msgs)
+        lanes.sigs.extend(sigs)
+        lanes.powers.extend(powers)
 
     def count(self) -> int:
-        return len(self._items)
+        return len(self._lanes)
 
     def __len__(self) -> int:
-        return len(self._items)
+        return len(self._lanes)
 
-    def _verify_pending(self, items, tally: bool) -> Tuple[List[bool], int]:
-        """Backend hook: (mask over ``items``, tallied power of valid lanes)."""
+    def _verify_pending(self, lanes: Lanes, tally: bool) -> Tuple[List[bool], int]:
+        """Backend hook: (mask over ``lanes``, tallied power of valid lanes)."""
         raise NotImplementedError
 
     def _resolve(self, tally: bool) -> Tuple[bool, List[bool], int]:
-        items = self._items
-        n = len(items)
+        lanes = self._lanes
+        n = len(lanes)
         cache = sigcache.DEFAULT
         if not cache.enabled():
-            mask, tallied = self._verify_pending(items, tally)
+            mask, tallied = self._verify_pending(lanes, tally)
             self.cache_stats = {"lanes": n, "hits": 0, "dedup": 0, "dispatched": n}
             return all(mask), mask, tallied
-        keys, rep = cache.resolve(*item_fields(items))
+        keys, rep = cache.resolve(lanes.types, lanes.pks, lanes.msgs, lanes.sigs)
         hit = rep < 0
-        powers = np.fromiter((it[3] for it in items), dtype=np.int64, count=n)
-        tallied = int(powers[hit].sum())
+        # Python ints: a sum of powers may pass 2^63, as the reference's may
+        tallied = sum(itertools.compress(lanes.powers, hit.tolist()))
         mask = hit.copy()
         first = rep == np.arange(n)
         pending = np.flatnonzero(first)
         if len(pending):
+            sub = lanes.take(pending.tolist())
             # a group's powers ride on its one lane, so the device tally
             # counts every member once
             later = np.flatnonzero(~hit & ~first)
-            folded = powers.copy()
-            np.add.at(folded, rep[later], powers[later])
-            sub_items = [items[i] for i in pending.tolist()]
-            for pos in np.flatnonzero(folded[pending] != powers[pending]).tolist():
-                sub_items[pos] = sub_items[pos][:3] + (int(folded[pending[pos]]),)
-            sub_mask, sub_tallied = self._verify_pending(sub_items, tally)
+            if len(later):
+                slot = np.empty(n, dtype=np.int64)
+                slot[pending] = np.arange(len(pending))
+                for i, j in zip(later.tolist(), slot[rep[later]].tolist()):
+                    sub.powers[j] += lanes.powers[i]
+            sub_mask, sub_tallied = self._verify_pending(sub, tally)
             tallied += sub_tallied
             ok = np.zeros(n, dtype=bool)
             ok[pending] = sub_mask
@@ -118,34 +166,34 @@ class TorchBatchVerifier(BatchVerifier):
         self.device = device_mod.resolve(device)
         self.bit_words: Optional[np.ndarray] = None
 
-    def _verify_pending(self, items, tally) -> Tuple[List[bool], int]:
+    def _verify_pending(self, lanes, tally) -> Tuple[List[bool], int]:
         from tmtpu_torch.gpu import k1_verify, sharding, sr_verify
         from tmtpu_torch.gpu import verify as tv
 
-        by_curve = {ED25519: [], SR25519: [], SECP256K1: []}
-        for i, (pk, _msg, _sig, _power) in enumerate(items):
-            kind = pk.type_value()
-            if kind not in by_curve:
+        kinds = set(lanes.types)
+        for kind in kinds:
+            if kind not in PUB_KEY_SIZES:
                 raise ValueError(f"unsupported key type {kind!r}")
-            by_curve[kind].append(i)
-        mask = np.zeros(len(items), dtype=bool)
+        mask = np.zeros(len(lanes), dtype=bool)
         tallied = 0
-        for kind, idx in by_curve.items():
-            if not idx:
+        for kind in PUB_KEY_SIZES:
+            if kind not in kinds:
                 continue
-            pks = [items[i][0].bytes() for i in idx]
-            msgs = [items[i][1] for i in idx]
-            sigs = [items[i][2] for i in idx]
+            if len(kinds) == 1:
+                idx, sub = slice(None), lanes
+            else:
+                idx = [i for i, t in enumerate(lanes.types) if t == kind]
+                sub = lanes.take(idx)
             if kind == ED25519 and tally:
                 m, ed_sum = sharding.batch_verify_tally(
-                    pks, msgs, sigs, [items[i][3] for i in idx], device=self.device)
+                    sub.pks, sub.msgs, sub.sigs, sub.powers, device=self.device)
                 tallied += ed_sum
             else:
                 verify_fn = {ED25519: tv.batch_verify,
                              SR25519: sr_verify.batch_verify_sr,
                              SECP256K1: k1_verify.batch_verify_k1}[kind]
-                m = verify_fn(pks, msgs, sigs, device=self.device)
-                tallied += sum(items[i][3] for i, ok in zip(idx, m) if ok)
+                m = verify_fn(sub.pks, sub.msgs, sub.sigs, device=self.device)
+                tallied += sum(itertools.compress(sub.powers, m.tolist()))
             mask[idx] = m
         return mask.tolist(), tallied
 
@@ -159,3 +207,18 @@ class TorchBatchVerifier(BatchVerifier):
 
 def new_batch_verifier(device=None) -> TorchBatchVerifier:
     return TorchBatchVerifier(device)
+
+
+def verify_lanes(curve: str, pks, msgs, sigs, powers, tally: bool,
+                 device=None) -> Tuple[List[bool], int, Dict]:
+    """One curve's raw lanes through a fresh ``TorchBatchVerifier``: the
+    sidecar daemon's engine. Returns (mask, tallied power of the valid
+    lanes, 0 when ``tally`` is false; the flush's ``cache_stats``)."""
+    bv = TorchBatchVerifier(device)
+    bv.add_lanes(curve, pks, msgs, sigs, powers)
+    if tally:
+        _all_ok, mask, tallied = bv.verify_tally()
+    else:
+        _all_ok, mask = bv.verify()
+        tallied = 0
+    return mask, tallied, bv.cache_stats
