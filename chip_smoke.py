@@ -29,10 +29,18 @@ with tally, five round trips on a cache-off daemon, then (b) four clients
 at once sending those 10,000 lanes on a fresh cache-on daemon with a fixed
 gather window (one dispatch of 40,000 lanes, one launch of 10,000), one
 more request (the commit flush over the wire: hits but for the corrupted
-lanes) and (c) the mixed-curve set as one request a curve; every mask,
-tally, cache breakdown and launch count is checked, the codec and the
-in-process engine are timed alone, and each daemon must exit 0 on
-SIGTERM.
+lanes) and (c) the mixed-curve set as one request a curve, then (d) a
+third daemon opted in to the mesh (``--mesh-devices 0``) with the
+10,000-vote set: split one launch a card on two or more cards, one launch
+on one; every mask, tally, cache breakdown and launch count is checked,
+the codec and the in-process engine are timed alone, and each daemon must
+exit 0 on SIGTERM. Before the daemons, the mesh phase splits the sets
+across a mesh (every card, or four shards of the one card) through
+``mesh_dispatch`` and holds each split against the single-device path,
+checks the production gate of a ``TorchBatchVerifier`` flush opted in to
+the mesh, and calls ``entry()`` and ``dryrun_multichip``; every other
+phase runs with the mesh off, the port's default, on any number of
+cards.
 
 Each flush runs with every launch counter set to 0 just before it and read
 just after. Then each kernel is held against its plain PyTorch version on
@@ -74,6 +82,7 @@ import torch
 
 from tests import torch_corpus as corpus
 from tmtpu_torch import device as device_mod
+from tmtpu_torch import entry as entry_mod
 from tmtpu_torch import native
 from tmtpu_torch.crypto import batch as crypto_batch
 from tmtpu_torch.crypto import sigcache
@@ -81,6 +90,7 @@ from tmtpu_torch.crypto.ed25519 import PrivKeyEd25519, PubKeyEd25519
 from tmtpu_torch.crypto.secp256k1 import PubKeySecp256k1
 from tmtpu_torch.crypto.sr25519 import PrivKeySr25519, PubKeySr25519
 from tmtpu_torch.gpu import build, k1_kernel, kernel, sharding
+from tmtpu_torch.gpu import mesh_dispatch as md
 from tmtpu_torch.gpu import k1_verify as kv
 from tmtpu_torch.gpu import sr_verify as sv
 from tmtpu_torch.gpu import verify as tv
@@ -146,6 +156,9 @@ BAD_PER_CURVE = 5
 CURVE_ORDER = (crypto_batch.ED25519, crypto_batch.SR25519, crypto_batch.SECP256K1)
 
 P60 = 2**60  # MAX_TOTAL_VOTING_POWER of the reference (tmtpu/types/validator.py)
+
+MESH_SHARDS = 4      # shards of the one card when the machine has one
+MESH_RAGGED = (1, 33, 127)
 
 SIDECAR_CLIENTS = 4  # validator processes sharing the card in phase (b)
 GATHER_MS = 2000     # the fixed gather window that lets all four ride one dispatch
@@ -560,6 +573,158 @@ def tally_past_2_63(key, msg, sig) -> dict:
     return out
 
 
+def mesh_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
+    """The lane split (``gpu/mesh_dispatch.py``) on the card: (a) the
+    10,000-vote ed25519 set across the mesh against the single-device
+    flush, bit for bit, timed; (b) the mixed set's sr25519 and secp256k1
+    lanes; (c) ragged widths with empty shards; (d) the tally past 2^63
+    with the copies on every shard; (e) the production gate of a
+    ``TorchBatchVerifier`` flush; (f) ``entry()`` and
+    ``dryrun_multichip``. The mesh is every card when there are two or
+    more, else ``MESH_SHARDS`` shards of the one card. Returns the counts
+    and times."""
+    dev = torch.device("cuda")
+    cards = torch.cuda.device_count()
+    mesh = sharding.make_mesh() if cards >= 2 else (torch.device("cuda", 0),) * MESH_SHARDS
+    n = len(sigs)
+    powers = [POWER] * n
+    out = {"mesh": [str(d) for d in mesh]}
+
+    def shards_of(b):
+        return len(sharding.shard_bounds(b, len(mesh)))
+
+    # (a) the ed25519 set
+    md.reset()
+    reset_launches()
+    m_mask, m_tally = md.batch_verify_tally_mesh(pks, msgs, sigs, powers, mesh=mesh)
+    a_launches = launches()
+    snap = md.snapshot()
+    s_mask, s_tally = sharding.batch_verify_tally(pks, msgs, sigs, powers, device=dev)
+    check(np.array_equal(m_mask, s_mask) and np.array_equal(m_mask, expect),
+          "mesh (a): the mask equals the single-device flush's")
+    check(m_tally == s_tally == POWER * int(expect.sum()), f"mesh (a): tally {m_tally}")
+    check(np.array_equal(sharding.pack_words(m_mask, dev), sharding.pack_words(s_mask, dev)),
+          "mesh (a): bitarray words")
+    check(a_launches == {"ed25519_verify": shards_of(n), "sr25519_verify": 0, "k1_verify": 0},
+          f"mesh (a): one launch a shard ({a_launches})")
+    want_sizes = [hi - lo for lo, hi in sharding.shard_bounds(n, len(mesh))]
+    if len(mesh) == 4 and n == MAX_VOTES_COUNT:
+        check(want_sizes == [2528, 2528, 2528, 2416], f"mesh (a): shard sizes {want_sizes}")
+    check(snap["last"]["shard_lanes"] == want_sizes and snap["dispatches"] == 1,
+          f"mesh (a): snapshot {snap}")
+    mesh_ms, single_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        md.batch_verify_tally_mesh(pks, msgs, sigs, powers, mesh=mesh)
+        mesh_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        sharding.batch_verify_tally(pks, msgs, sigs, powers, device=dev)
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(launches=a_launches["ed25519_verify"], shard_lanes=snap["last"]["shard_lanes"],
+               flush_ms=statistics.median(mesh_ms), single_ms=statistics.median(single_ms),
+               flush_ms_all=mesh_ms, single_ms_all=single_ms)
+    print(f"mesh (a): {n} ed25519 lanes over {len(mesh)} shards ({cards} card(s)), shard lanes "
+          f"{snap['last']['shard_lanes']}, launches {a_launches}; mask, tally {m_tally} and "
+          f"bitarray equal the single-device flush; batch_verify_tally_mesh "
+          f"{out['flush_ms']:.3f} ms against sharding.batch_verify_tally {out['single_ms']:.3f} "
+          f"ms, medians of 5 in turns [{card}]")
+
+    # (b) the mixed set's sr25519 and secp256k1 lanes
+    singles = {crypto_batch.SR25519: sv.batch_verify_sr, crypto_batch.SECP256K1: kv.batch_verify_k1}
+    names = {crypto_batch.SR25519: "sr25519_verify", crypto_batch.SECP256K1: "k1_verify"}
+    for kind, single in singles.items():
+        k_pks, k_msgs, k_sigs, k_expect = mixed[kind]
+        reset_launches()
+        m = md.batch_verify_mesh(kind, k_pks, k_msgs, k_sigs, mesh=mesh)
+        b_launches = launches()
+        check(np.array_equal(m, single(k_pks, k_msgs, k_sigs, device=dev))
+              and np.array_equal(m, k_expect), f"mesh (b): {kind} mask")
+        check(b_launches[names[kind]] == shards_of(len(k_sigs))
+              and sum(b_launches.values()) == shards_of(len(k_sigs)),
+              f"mesh (b): {kind} one launch a shard ({b_launches})")
+        out[f"{kind}_launches"] = b_launches[names[kind]]
+    print(f"mesh (b): the mixed set's {len(mixed[crypto_batch.SR25519][2])} sr25519 and "
+          f"{len(mixed[crypto_batch.SECP256K1][2])} secp256k1 lanes over {len(mesh)} shards "
+          f"equal the single-device masks, launches {out['sr25519_launches']} and "
+          f"{out['secp256k1_launches']}")
+
+    # (c) ragged widths: some shards empty, which neither copy nor launch
+    for b in MESH_RAGGED:
+        reset_launches()
+        r_powers = [POWER + i for i in range(b)]
+        m, t = md.batch_verify_tally_mesh(pks[:b], msgs[:b], sigs[:b], r_powers, mesh=mesh)
+        check(launches()["ed25519_verify"] == shards_of(b),
+              f"mesh (c): {b} lanes, one launch a non-empty shard ({launches()})")
+        sm, st = sharding.batch_verify_tally(pks[:b], msgs[:b], sigs[:b], r_powers, device=dev)
+        check(np.array_equal(m, sm) and np.array_equal(m, expect[:b]) and t == st,
+              f"mesh (c): {b} ed25519 lanes")
+        for kind, single in singles.items():
+            k_pks, k_msgs, k_sigs, k_expect = mixed[kind]
+            km = md.batch_verify_mesh(kind, k_pks[:b], k_msgs[:b], k_sigs[:b], mesh=mesh)
+            check(np.array_equal(km, single(k_pks[:b], k_msgs[:b], k_sigs[:b], device=dev))
+                  and np.array_equal(km, k_expect[:b]), f"mesh (c): {b} {kind} lanes")
+    print(f"mesh (c): widths {MESH_RAGGED} over {len(mesh)} shards "
+          f"({[shards_of(b) for b in MESH_RAGGED]} non-empty), every curve equal to "
+          f"the single-device path")
+
+    # (d) the tally past 2^63: copies of one precommit at 2^60 on every
+    # shard among 128 valid lanes of power 1, each shard's sum under 2^63
+    big = {}
+    for copies in (8, 9):
+        b = 128
+        at = set(range(0, b, b // copies)[:copies])
+        rows = [(pks[1], msgs[1], sigs[1], P60) if j in at else
+                (pks[1 + j], msgs[1 + j], sigs[1 + j], 1) for j in range(b)]
+        cols = [list(c) for c in zip(*rows)]
+        m, t = md.batch_verify_tally_mesh(*cols, mesh=mesh)
+        _, st = sharding.batch_verify_tally(*cols, device=dev)
+        check(m.all() and t == st == copies * P60 + b - copies,
+              f"mesh (d): {copies} copies at 2^60: {t}")
+        big[f"{copies} copies"] = t
+    out["tally_past_2_63"] = big
+    print("mesh (d): the tally past 2^63 with the copies split across shards, exact: "
+          + ", ".join(f"{k}: {v}" for k, v in big.items()))
+
+    # (e) the production gate: route() needs two or more cards
+    keys = [PubKeyEd25519(pk) for pk in pks]
+    # the mesh is off by default (mesh_devices 1): opt in to every card
+    os.environ["TMTPU_SHARD_MIN_LANES"] = "1"
+    md.set_overrides(mesh_devices=0)
+    try:
+        sigcache.invalidate_all()
+        bv = crypto_batch.new_batch_verifier()
+        for key, msg, sig in zip(keys, msgs, sigs):
+            bv.add(key, msg, sig, POWER)
+        before = md.dispatch_count()
+        reset_launches()
+        _, mask, tally = bv.verify_tally()
+        e_launches = launches()
+        routed = md.dispatch_count() - before
+    finally:
+        del os.environ["TMTPU_SHARD_MIN_LANES"]
+        md.set_overrides(**md.DEFAULTS)
+    check(mask == expect.tolist() and tally == POWER * int(expect.sum()), "mesh (e): the flush")
+    want_launches = shards_of(n) if cards >= 2 else 1
+    check(routed == (1 if cards >= 2 else 0) and e_launches["ed25519_verify"] == want_launches,
+          f"mesh (e): {cards} card(s), routed {routed}, launches {e_launches}")
+    out["gate_launches"] = e_launches["ed25519_verify"]
+    print(f"mesh (e): a TorchBatchVerifier flush with shard_min_lanes 1 on {cards} card(s): "
+          f"routed {routed}, launches {e_launches}")
+
+    # (f) the entry points
+    step, args = entry_mod.entry()
+    e_mask, e_sums = step(*args)
+    check(bool(e_mask.all()) and sharding.combine_limbs(e_sums.cpu().tolist()) == 32 * 1000,
+          "mesh (f): entry() step")
+    t0 = time.perf_counter()
+    entry_mod.dryrun_multichip(MESH_SHARDS, devices=(torch.device("cuda", 0),) * MESH_SHARDS)
+    if cards >= 2:
+        entry_mod.dryrun_multichip(cards)
+    out["dryrun_s"] = time.perf_counter() - t0
+    print(f"mesh (f): entry() and dryrun_multichip passed ({out['dryrun_s']:.1f} s)")
+    return out
+
+
 class Daemon:
     """``python -m tmtpu_torch sidecar`` in a process of its own, on a unix
     socket in a fresh temporary directory (tcp on 127.0.0.1 when that path
@@ -786,7 +951,32 @@ def sidecar_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
               f"({', '.join(f'{k} {len(mixed[k][2])}' for k in CURVE_ORDER)}): every mask and "
               f"tally exact, launches {launch_delta(before, after)}")
         y.terminate()
-        print("sidecar daemons: both drained and exited 0 on SIGTERM")
+
+        # (d) a daemon that opts in to the mesh (every card): on two or more
+        # cards its dispatch splits, one launch a card; on one it cannot
+        cards = torch.cuda.device_count()
+        z = Daemon("mesh", "--no-sigcache", "--mesh-devices", "0")
+        daemons.append(z)
+        before = z.stats()
+        c = z.client("validator-0")
+        mask, tallied, info = c.verify(crypto_batch.ED25519, lanes, tally=True, deadline_s=60.0)
+        c.close()
+        after = z.stats()
+        check(mask == want_mask and tallied == want_tally, "sidecar (d): mask and tally")
+        routed = after["coalescer"]["mesh_dispatches"] - before["coalescer"]["mesh_dispatches"]
+        want_sizes = [hi - lo for lo, hi in sharding.shard_bounds(n, cards)]
+        check(routed == (1 if cards >= 2 else 0)
+              and launch_delta(before, after)["ed25519_verify"] == len(want_sizes),
+              f"sidecar (d): {cards} card(s), mesh dispatches {routed}, "
+              f"launches {launch_delta(before, after)}")
+        if cards >= 2:
+            check(after["mesh"]["last"]["shard_lanes"] == want_sizes,
+                  f"sidecar (d): shard lanes {after['mesh']['last']}")
+        out["mesh_daemon_routed"] = routed
+        print(f"sidecar (d): a daemon with --mesh-devices 0 on {cards} card(s): mesh dispatches "
+              f"{routed}, launches {launch_delta(before, after)}, mask and tally exact")
+        z.terminate()
+        print("sidecar daemons: all three drained and exited 0 on SIGTERM")
     except Exception:
         for d in daemons:
             print(f"--- daemon {d.name} stderr ---\n{d.stderr()}", file=sys.stderr)
@@ -826,9 +1016,9 @@ def codec_and_engine(pks, msgs, sigs, expect, card) -> dict:
 
     def engine():
         return crypto_batch.verify_lanes(crypto_batch.ED25519, pks, msgs, sigs, powers, True)
-    mask, tallied, _ = engine()
-    check(mask == expect.tolist() and tallied == POWER * int(expect.sum()),
-          "engine: mask and tally")
+    mask, tallied, _, meshed = engine()
+    check(mask == expect.tolist() and tallied == POWER * int(expect.sum()) and meshed == 0,
+          "engine: mask and tally, on one card")
     t["engine_cold_ms"] = time_host(engine, 5, before=sigcache.invalidate_all)
     sigcache.DEFAULT.set_enabled(False)
     t["engine_cache_off_ms"] = time_host(engine, 5)
@@ -840,6 +1030,49 @@ def codec_and_engine(pks, msgs, sigs, expect, card) -> dict:
           f"lanes) cold {t['engine_cold_ms']:.3f}, cache off {t['engine_cache_off_ms']:.3f} "
           f"[{card}]")
     return t
+
+
+def ed_set(ed_signed):
+    """The ed25519 vote set: (pks, msgs, sigs with every 997th corrupted,
+    the expected mask)."""
+    pks = [pk for pk, _, _ in ed_signed]
+    msgs = [m for _, m, _ in ed_signed]
+    sigs = [corrupt(sg) if i % BAD_EVERY == 0 else sg
+            for i, (_, _, sg) in enumerate(ed_signed)]
+    expect = np.ones(len(sigs), dtype=bool)
+    expect[::BAD_EVERY] = False
+    return pks, msgs, sigs, expect
+
+
+def mixed_set(n, ed_signed, sr_signed, k1_signed):
+    """The mixed-curve set: ed25519, sr25519 (every 20th from the 7th) and
+    secp256k1 (every 20th from the 13th) keys interleaved, five corrupted
+    signatures a curve. Returns (keys, msgs, sigs, {curve: lane indices},
+    the corrupted lanes, the expected mask)."""
+    pools = {crypto_batch.ED25519: iter(ed_signed),
+             crypto_batch.SR25519: iter(sr_signed),
+             crypto_batch.SECP256K1: iter(k1_signed)}
+    key_cls = {crypto_batch.ED25519: PubKeyEd25519, crypto_batch.SR25519: PubKeySr25519,
+               crypto_batch.SECP256K1: PubKeySecp256k1}
+    curve_of, m_keys, m_msgs, m_sigs = [], [], [], []
+    for i in range(n):
+        kind = (crypto_batch.SR25519 if i % 20 == 7 else
+                crypto_batch.SECP256K1 if i % 20 == 13 else crypto_batch.ED25519)
+        pk, msg, sig = next(pools[kind])
+        curve_of.append(kind)
+        m_keys.append(key_cls[kind](pk))
+        m_msgs.append(msg)
+        m_sigs.append(sig)
+    lanes_of = {kind: [i for i in range(n) if curve_of[i] == kind] for kind in CURVE_ORDER}
+    m_bad = set()
+    for idxs in lanes_of.values():
+        for i in idxs[::max(1, len(idxs) // BAD_PER_CURVE)][:BAD_PER_CURVE]:
+            m_bad.add(i)
+            m_sigs[i] = corrupt(m_sigs[i])
+    m_bad = sorted(m_bad)
+    m_expect = np.ones(n, dtype=bool)
+    m_expect[m_bad] = False
+    return m_keys, m_msgs, m_sigs, lanes_of, m_bad, m_expect
 
 
 def main() -> int:
@@ -882,10 +1115,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
 
     # 4. the ed25519 path, counted
-    pks = [pk for pk, _, _ in ed_signed]
-    msgs = [m for _, m, _ in ed_signed]
-    sigs = [corrupt(sg) if i % BAD_EVERY == 0 else sg
-            for i, (_, _, sg) in enumerate(ed_signed)]
+    pks, msgs, sigs, expect = ed_set(ed_signed)
     bad = list(range(0, n, BAD_EVERY))
     print(f"ed25519 vote set: {n} validators, {len(bad)} corrupted")
     keys = [PubKeyEd25519(pk) for pk in pks]
@@ -897,8 +1127,6 @@ def main() -> int:
     reset_launches()
     all_ok, mask, tally = bv.verify_tally()
     ed_launches = launches()
-    expect = np.ones(n, dtype=bool)
-    expect[bad] = False
     check([i for i, ok in enumerate(mask) if not ok] == bad,
           "false lanes are exactly the corrupted ones")
     check(not all_ok, "verify_tally reports the corrupted lanes")
@@ -970,29 +1198,8 @@ def main() -> int:
 
     # 7. the mixed-curve set: 9,000 ed25519 (the first 9,000 keys above),
     # 500 sr25519 and 500 secp256k1, interleaved in the add order
-    pools = {crypto_batch.ED25519: iter(ed_signed[:n_ed_mixed]),
-             crypto_batch.SR25519: iter(sr_signed),
-             crypto_batch.SECP256K1: iter(k1_signed)}
-    key_cls = {crypto_batch.ED25519: PubKeyEd25519, crypto_batch.SR25519: PubKeySr25519,
-               crypto_batch.SECP256K1: PubKeySecp256k1}
-    curve_of, m_keys, m_msgs, m_sigs = [], [], [], []
-    for i in range(n):
-        kind = (crypto_batch.SR25519 if i % 20 == 7 else
-                crypto_batch.SECP256K1 if i % 20 == 13 else crypto_batch.ED25519)
-        pk, msg, sig = next(pools[kind])
-        curve_of.append(kind)
-        m_keys.append(key_cls[kind](pk))
-        m_msgs.append(msg)
-        m_sigs.append(sig)
-    lanes_of = {kind: [i for i in range(n) if curve_of[i] == kind] for kind in CURVE_ORDER}
-    m_bad = set()
-    for idxs in lanes_of.values():
-        for i in idxs[::max(1, len(idxs) // BAD_PER_CURVE)][:BAD_PER_CURVE]:
-            m_bad.add(i)
-            m_sigs[i] = corrupt(m_sigs[i])
-    m_bad = sorted(m_bad)
-    m_expect = np.ones(n, dtype=bool)
-    m_expect[m_bad] = False
+    m_keys, m_msgs, m_sigs, lanes_of, m_bad, m_expect = mixed_set(
+        n, ed_signed[:n_ed_mixed], sr_signed, k1_signed)
     counts = {kind: len(idx) for kind, idx in lanes_of.items()}
 
     def args_of(kind):
@@ -1080,10 +1287,16 @@ def main() -> int:
         entry["mixed_e2e_ms"] = mixed_ms
         entry["mixed_e2e_ms_cache_off"] = mixed_off_ms
 
+    # 10b. the lane split across the mesh
+    mixed = {kind: args_of(kind) + (m_expect[lanes_of[kind]],) for kind in CURVE_ORDER}
+    mesh = mesh_phase(pks, msgs, sigs, expect, mixed, card)
+    for entry, key in zip(entries, ("launches", "sr25519_launches", "secp256k1_launches")):
+        entry["mesh_launches"] = mesh[key]
+    entries[0]["mesh"] = mesh
+
     # 11. the sidecar daemon: codec and engine alone, then phases (a)-(c)
     sigcache.invalidate_all()
     sidecar = codec_and_engine(pks, msgs, sigs, expect, card)
-    mixed = {kind: args_of(kind) + (m_expect[lanes_of[kind]],) for kind in CURVE_ORDER}
     sidecar.update(sidecar_phase(pks, msgs, sigs, expect, mixed, card))
     print(f"sidecar round trip {sidecar['rtt_ms']:.3f} ms against the in-process flush of the "
           f"same run: cold {e2e_ms:.3f} ms, cache off {e2e_off_ms:.3f} ms; the engine alone "

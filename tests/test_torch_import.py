@@ -1,5 +1,5 @@
-"""The port stands alone: no module of tmtpu_torch, and neither chip_smoke.py
-nor kernel_times.py, imports jax or anything of the JAX package tmtpu, nor the ``cryptography``
+"""The port stands alone: no module of tmtpu_torch, and none of chip_smoke.py,
+kernel_times.py and bench_torch.py, imports jax or anything of the JAX package tmtpu, nor the ``cryptography``
 package (the machine with the card has none; the port signs and verifies
 secp256k1 with its own pure-Python curve)."""
 
@@ -14,7 +14,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_times.py")]
+    out = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "kernel_times.py",
+                                                 "bench_torch.py")]
     for dirpath, dirs, files in os.walk(os.path.join(ROOT, "tmtpu_torch")):
         dirs[:] = [d for d in dirs if d != "build"]  # kernel build outputs
         out += [os.path.join(dirpath, f) for f in sorted(files) if f.endswith(".py")]
@@ -44,6 +45,11 @@ def test_every_module_imports_without_jax_or_tmtpu():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_entry_points_mesh_and_bench_are_covered():
+    names = _module_names()
+    assert {"tmtpu_torch.entry", "tmtpu_torch.gpu.mesh_dispatch", "bench_torch"} <= set(names)
 
 
 def test_host_prep_and_cache_are_covered():

@@ -399,6 +399,37 @@ def test_identical_lanes_of_two_clients_share_lanes(tmp_path):
     assert stats == {"lanes": 8, "hits": 0, "dedup": 4, "dispatched": 4}
 
 
+def test_two_clients_split_across_four_cpu_shards(tmp_path):
+    """Two clients' lanes coalesce into one joint dispatch, and that
+    dispatch splits across the mesh (the daemon's ``mesh_devices`` and
+    ``shard_min_lanes``): each shard's lanes land in the Stats' ``mesh``
+    section (tests/test_mesh_dispatch.py's sidecar scenario)."""
+    from tmtpu_torch.gpu import mesh_dispatch
+
+    mesh_dispatch.reset()
+    try:
+        with _daemon("port", tmp_path, mesh_devices=4, shard_min_lanes=1) as srv:
+            _fix_window(srv, 0.5)
+            got = _concurrent(srv, {
+                "a": ("ed25519", _lanes(18, bad={1}, tag=b"mesh-sc-a"), True),
+                "b": ("ed25519", _lanes(22, bad={2}, tag=b"mesh-sc-b"), True)})
+            stats = srv.snapshot()
+    finally:
+        mesh_dispatch.set_overrides(**mesh_dispatch.DEFAULTS)
+        mesh_dispatch.reset()
+    mask_a, tallied_a, info_a = got["a"]
+    mask_b, tallied_b, info_b = got["b"]
+    assert mask_a == [i != 1 for i in range(18)] and tallied_a == 17 * 1000
+    assert mask_b == [i != 2 for i in range(22)] and tallied_b == 21 * 1000
+    assert info_a == info_b and info_a["dispatch_clients"] == 2
+    assert info_a["dispatch_lanes"] == 40
+    assert stats["coalescer"]["mesh_dispatches"] == 1
+    mesh = stats["mesh"]
+    assert mesh["devices"] == 4 and mesh["shard_min_lanes"] == 1 and mesh["dispatches"] == 1
+    assert mesh["occupancy_lanes"] == {"0": 32, "1": 8, "2": 0, "3": 0}
+    assert mesh["last"]["shard_lanes"] == [32, 8, 0, 0]
+
+
 @pytest.mark.parametrize("fault", ["raises", "short mask"])
 def test_engine_failure_answers_backend_down(tmp_path, fault):
     """An engine exception, or a mask of the wrong length, answers the
@@ -411,7 +442,9 @@ def test_engine_failure_answers_backend_down(tmp_path, fault):
 
     def scenario(srv):
         real = srv.coalescer._verify_fn
-        srv.coalescer._verify_fn = (engine if isinstance(srv, SidecarServer)
+        # the port's engine also reports its mesh dispatches (none here)
+        srv.coalescer._verify_fn = ((lambda *a: engine(*a) + (0,))
+                                    if isinstance(srv, SidecarServer)
                                     else lambda curve, items, tally: engine(curve, items))
         with _client(srv, "f") as c:
             with pytest.raises(SidecarUnavailable) as err:

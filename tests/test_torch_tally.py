@@ -122,10 +122,10 @@ def test_raw_lanes_tally_past_2_63(cache):
         refv.add(ref_key, msg, sig, P60)
     want = refv.verify_tally()
     pk = port_key.bytes()
-    mask, tallied, stats = batch.verify_lanes(batch.ED25519, [pk] * 8, [msg] * 8, [sig] * 8,
-                                              [P60] * 8, tally=True, device="cpu")
+    mask, tallied, stats, meshed = batch.verify_lanes(
+        batch.ED25519, [pk] * 8, [msg] * 8, [sig] * 8, [P60] * 8, tally=True, device="cpu")
     assert (all(mask), mask, tallied) == want and tallied == 2**63
-    assert stats == refv.cache_stats
+    assert stats == refv.cache_stats and meshed == 0
 
 
 @pytest.mark.parametrize("powers", [

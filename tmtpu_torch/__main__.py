@@ -9,7 +9,11 @@ comes from ``--addr``, else ``TMTPU_SIDECAR_ADDR``, else
 kernels and the C host prep, verifies one self-signed batch of each
 curve), then prints one ready line with the warm-up seconds and the card.
 SIGTERM drains (new requests are answered OVERLOADED, dispatches in flight
-finish) and stops, exit 0; SIGINT stops at once.
+finish) and stops, exit 0; SIGINT stops at once. ``--mesh-devices`` and
+``--shard-min-lanes`` are the reference's ``[sidecar] mesh_devices`` /
+``shard_min_lanes``: a dispatch of at least that many lanes of one curve
+splits across the cards (``gpu/mesh_dispatch.py``). The port's default
+``--mesh-devices`` is 1, the mesh off; 0 opts in to every visible card.
 
     python -m tmtpu_torch sidecar --addr unix:///tmp/tmtpu-sidecar.sock
     python -m tmtpu_torch sidecar --addr tcp://127.0.0.1:0 --device cpu --no-warm
@@ -41,7 +45,9 @@ def cmd_sidecar(args) -> int:
         sigcache.DEFAULT.set_enabled(False)
     server = SidecarServer(addr, device=args.device,
                            max_queue_lanes=args.max_queue_lanes,
-                           max_lanes_per_dispatch=args.max_lanes)
+                           max_lanes_per_dispatch=args.max_lanes,
+                           mesh_devices=args.mesh_devices,
+                           shard_min_lanes=args.shard_min_lanes)
     if args.gather_ms is not None:
         server.coalescer.scheduler.fixed_wait_s = args.gather_ms / 1000.0
     warm_s = 0.0 if args.no_warm else server.warm()
@@ -88,6 +94,11 @@ def main(argv=None) -> int:
                     help="a fixed gather window in place of the adaptive one")
     sp.add_argument("--no-sigcache", action="store_true",
                     help="switch the signature cache off (no hits, no dedup)")
+    sp.add_argument("--mesh-devices", type=int, default=None,
+                    help="cards a dispatch may split across (default 1: the mesh is off; "
+                         "0: every visible card; on the CPU, that many CPU shards)")
+    sp.add_argument("--shard-min-lanes", type=int, default=None,
+                    help="the fewest lanes of one curve that split across the mesh")
     sp.set_defaults(fn=cmd_sidecar)
     args = parser.parse_args(argv)
     return args.fn(args)

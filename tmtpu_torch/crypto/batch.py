@@ -15,10 +15,14 @@ folded into it, and successes are inserted on the way out. The lanes left
 split by curve, as the reference's ``_split`` does, with one device
 dispatch per curve present: ed25519 to ``sharding.batch_verify_tally`` (or
 ``verify.batch_verify``), sr25519 to ``sr_verify.batch_verify_sr``,
-secp256k1 to ``k1_verify.batch_verify_k1``. This slice has no breaker, no
-serial CPU fallback, no multi-device routing, no metrics and no timeline
-events; groups below the reference's serial threshold go to the device
-too, which gives the same mask.
+secp256k1 to ``k1_verify.batch_verify_k1``; or, where
+``mesh_dispatch.route`` says so (at least ``shard_min_lanes`` lanes left
+after the resolve and two or more devices), split across the mesh by
+``mesh_dispatch.batch_verify_tally_mesh`` / ``batch_verify_mesh``, the
+reference's ``_mesh_first``. There is no breaker, no fallback from the mesh
+to one device, no serial CPU fallback, no metrics and no timeline events;
+groups below the reference's serial threshold go to the device too, which
+gives the same mask.
 """
 
 from __future__ import annotations
@@ -159,15 +163,22 @@ class TorchBatchVerifier(BatchVerifier):
     """Lanes verified on ``device`` (None: the CUDA card; raises when there
     is none), one dispatch per curve present. After ``verify_tally``,
     ``bit_words`` holds the vote bitarray of every item in ``add`` order,
-    hits included, packed on the device (uint32 words, LSB-first)."""
+    hits included, packed on the device (uint32 words, LSB-first), and
+    ``mesh_dispatches`` the curves of the last flush that went across the
+    mesh."""
 
     def __init__(self, device=None):
         super().__init__()
         self.device = device_mod.resolve(device)
         self.bit_words: Optional[np.ndarray] = None
+        self.mesh_dispatches = 0
+
+    def _resolve(self, tally: bool) -> Tuple[bool, List[bool], int]:
+        self.mesh_dispatches = 0
+        return super()._resolve(tally)
 
     def _verify_pending(self, lanes, tally) -> Tuple[List[bool], int]:
-        from tmtpu_torch.gpu import k1_verify, sharding, sr_verify
+        from tmtpu_torch.gpu import k1_verify, mesh_dispatch, sharding, sr_verify
         from tmtpu_torch.gpu import verify as tv
 
         kinds = set(lanes.types)
@@ -184,15 +195,23 @@ class TorchBatchVerifier(BatchVerifier):
             else:
                 idx = [i for i, t in enumerate(lanes.types) if t == kind]
                 sub = lanes.take(idx)
+            meshed = mesh_dispatch.route(kind, len(sub), self.device)
+            self.mesh_dispatches += meshed
             if kind == ED25519 and tally:
-                m, ed_sum = sharding.batch_verify_tally(
-                    sub.pks, sub.msgs, sub.sigs, sub.powers, device=self.device)
+                tally_fn = (mesh_dispatch.batch_verify_tally_mesh if meshed
+                            else sharding.batch_verify_tally)
+                m, ed_sum = tally_fn(sub.pks, sub.msgs, sub.sigs, sub.powers,
+                                     device=self.device)
                 tallied += ed_sum
             else:
-                verify_fn = {ED25519: tv.batch_verify,
-                             SR25519: sr_verify.batch_verify_sr,
-                             SECP256K1: k1_verify.batch_verify_k1}[kind]
-                m = verify_fn(sub.pks, sub.msgs, sub.sigs, device=self.device)
+                if meshed:
+                    m = mesh_dispatch.batch_verify_mesh(kind, sub.pks, sub.msgs, sub.sigs,
+                                                        device=self.device)
+                else:
+                    verify_fn = {ED25519: tv.batch_verify,
+                                 SR25519: sr_verify.batch_verify_sr,
+                                 SECP256K1: k1_verify.batch_verify_k1}[kind]
+                    m = verify_fn(sub.pks, sub.msgs, sub.sigs, device=self.device)
                 tallied += sum(itertools.compress(sub.powers, m.tolist()))
             mask[idx] = m
         return mask.tolist(), tallied
@@ -210,10 +229,11 @@ def new_batch_verifier(device=None) -> TorchBatchVerifier:
 
 
 def verify_lanes(curve: str, pks, msgs, sigs, powers, tally: bool,
-                 device=None) -> Tuple[List[bool], int, Dict]:
+                 device=None) -> Tuple[List[bool], int, Dict, int]:
     """One curve's raw lanes through a fresh ``TorchBatchVerifier``: the
     sidecar daemon's engine. Returns (mask, tallied power of the valid
-    lanes, 0 when ``tally`` is false; the flush's ``cache_stats``)."""
+    lanes, 0 when ``tally`` is false; the flush's ``cache_stats``; 1 when
+    the flush went across the mesh, else 0)."""
     bv = TorchBatchVerifier(device)
     bv.add_lanes(curve, pks, msgs, sigs, powers)
     if tally:
@@ -221,4 +241,4 @@ def verify_lanes(curve: str, pks, msgs, sigs, powers, tally: bool,
     else:
         _all_ok, mask = bv.verify()
         tallied = 0
-    return mask, tallied, bv.cache_stats
+    return mask, tallied, bv.cache_stats, bv.mesh_dispatches

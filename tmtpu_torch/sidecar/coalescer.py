@@ -22,8 +22,10 @@ distinct clients, traced requests).
   length, answers every request of the dispatch with ``failure="engine"``
   and no mask.
 
-The reference's metrics, timeline records, trace marks and mesh-dispatch
-accounting are not ported.
+- Mesh accounting: the engine reports whether it split a dispatch across
+  the mesh, and those dispatches are counted in ``mesh_dispatches``.
+
+The reference's metrics, timeline records and trace marks are not ported.
 """
 
 from __future__ import annotations
@@ -33,8 +35,9 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
-# the verify engine: (curve, pks, msgs, sigs, powers, tally) -> (mask, tallied)
-VerifyFn = Callable[[str, list, list, list, list, bool], Tuple[List[bool], int]]
+# the verify engine: (curve, pks, msgs, sigs, powers, tally) -> (mask,
+# tallied, the mesh dispatches it made: 0 or 1)
+VerifyFn = Callable[[str, list, list, list, list, bool], Tuple[List[bool], int, int]]
 
 
 class Overloaded(Exception):
@@ -167,6 +170,7 @@ class Coalescer:
         self._queued_lanes = 0
         self._inflight = 0            # batches cut but not yet answered
         self._dispatch_seq = 0
+        self._mesh_dispatches = 0
         self._running = False
         self._thread: Optional[threading.Thread] = None
 
@@ -250,6 +254,7 @@ class Coalescer:
                     "queued_by_curve": per_curve,
                     "inflight_batches": self._inflight,
                     "dispatches": self._dispatch_seq,
+                    "mesh_dispatches": self._mesh_dispatches,
                     "scheduler": self.scheduler.snapshot()}
 
     # --- dispatcher ---
@@ -332,7 +337,7 @@ class Coalescer:
         tally = any(req.tally for req in live)
         t0 = time.perf_counter()
         try:
-            mask, _tallied = self._verify_fn(curve, pks, msgs, sigs, powers, tally)
+            mask, _tallied, meshed = self._verify_fn(curve, pks, msgs, sigs, powers, tally)
         except Exception as exc:  # noqa: BLE001 - an engine failure must not
             # wedge clients: they get an error verdict, never a mask
             for req in live:
@@ -341,6 +346,9 @@ class Coalescer:
                 req.done.set()
             return
         self.scheduler.note_dispatch(len(sigs), time.perf_counter() - t0)
+        if meshed:
+            with self._lock:
+                self._mesh_dispatches += meshed
         traced = sum(req.traced for req in live)
         if len(mask) != len(sigs):
             for req in live:

@@ -36,6 +36,7 @@ from typing import Dict, Optional
 from tmtpu_torch import device as device_mod
 from tmtpu_torch.crypto import batch as crypto_batch
 from tmtpu_torch.crypto import sigcache
+from tmtpu_torch.gpu import mesh_dispatch
 from tmtpu_torch.sidecar import protocol as proto
 from tmtpu_torch.sidecar.coalescer import Coalescer, Overloaded
 
@@ -99,7 +100,9 @@ class SidecarServer:
                  max_lanes_per_dispatch: int = 40960,
                  max_frame_bytes: int = proto.DEFAULT_MAX_FRAME_BYTES,
                  request_deadline_s: float = 30.0,
-                 server_id: str = ""):
+                 server_id: str = "",
+                 mesh_devices: Optional[int] = None,
+                 shard_min_lanes: Optional[int] = None):
         self.addr = addr
         self._kind, self._target = proto.parse_addr(addr)
         self.device = device_mod.resolve(device)
@@ -107,6 +110,10 @@ class SidecarServer:
         self._max_frame_bytes = max_frame_bytes
         self._default_deadline_s = request_deadline_s
         self.server_id = server_id or f"sidecar-{os.getpid()}"
+        # the daemon owns every card on the host: its mesh knobs
+        # (``[sidecar] mesh_devices`` / ``shard_min_lanes``) apply at start
+        self._mesh_devices = mesh_devices
+        self._shard_min_lanes = shard_min_lanes
         self.coalescer = Coalescer(
             self._engine_verify,
             max_queue_lanes=max_queue_lanes,
@@ -125,11 +132,12 @@ class SidecarServer:
 
     def _engine_verify(self, curve, pks, msgs, sigs, powers, tally):
         """Coalescer dispatch target: one curve's joint columns through one
-        verify-once flush on the daemon's device."""
-        mask, tallied, stats = crypto_batch.verify_lanes(
+        verify-once flush on the daemon's device. Returns (mask, tallied,
+        1 when the flush went across the mesh, else 0)."""
+        mask, tallied, stats, meshed = crypto_batch.verify_lanes(
             curve, pks, msgs, sigs, powers, tally, device=self.device)
         self._last_cache_stats = stats
-        return mask, tallied
+        return mask, tallied, meshed
 
     def backend_name(self) -> str:
         return "gpu" if self.device.type == "cuda" else "cpu"
@@ -148,8 +156,8 @@ class SidecarServer:
         native.build()
         for curve in crypto_batch.PUB_KEY_SIZES:
             pks, msgs, sigs = _self_signed(curve, WARM_LANES)
-            mask, tallied = self._engine_verify(curve, pks, msgs, sigs,
-                                                [1] * WARM_LANES, True)
+            mask, tallied, _ = self._engine_verify(curve, pks, msgs, sigs,
+                                                   [1] * WARM_LANES, True)
             if mask != [True] * WARM_LANES or tallied != WARM_LANES:
                 raise RuntimeError(f"sidecar warm-up: {curve} self-signed lanes gave "
                                    f"mask {mask}, tally {tallied}")
@@ -183,6 +191,8 @@ class SidecarServer:
         self._listener = sock
         self._running = True
         self._started_at = time.monotonic()
+        mesh_dispatch.set_overrides(mesh_devices=self._mesh_devices,
+                                    shard_min_lanes=self._shard_min_lanes)
         self.coalescer.start()
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="sidecar-accept", daemon=True)
@@ -250,6 +260,7 @@ class SidecarServer:
             "uptime_s": round(max(0.0, time.monotonic() - self._started_at), 3),
             "connections": n_conns,
             "coalescer": self.coalescer.snapshot(),
+            "mesh": mesh_dispatch.snapshot(),
             "sigcache": sigcache.stats(),
             "engine": {"last_cache_stats": self._last_cache_stats,
                        "launches": launch_counts()},
