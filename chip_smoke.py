@@ -32,7 +32,12 @@ more request (the commit flush over the wire: hits but for the corrupted
 lanes) and (c) the mixed-curve set as one request a curve, then (d) a
 third daemon opted in to the mesh (``--mesh-devices 0``) with the
 10,000-vote set: split one launch a card on two or more cards, one launch
-on one; every mask, tally, cache breakdown and launch count is checked,
+on one, then (e) a daemon given only ``--home``, whose
+``config/config.toml`` (written by this script) sets its address, lane
+cap and request deadline, and (f) a daemon with ``--health-laddr``:
+``/healthz`` healthy and warmed, and after one 10,000-lane request
+``/metrics`` counting the dispatches that Stats counts; every mask, tally,
+cache breakdown and launch count is checked,
 the codec and the in-process engine are timed alone, and each daemon must
 exit 0 on SIGTERM. Before the daemons, the mesh phase splits the sets
 across a mesh (every card, or four shards of the one card) through
@@ -69,12 +74,15 @@ import queue
 import re
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -731,16 +739,23 @@ class Daemon:
     is too long for a socket). Its stdout is read on a thread; its stderr
     goes to a file, printed when anything fails."""
 
-    def __init__(self, name: str, *args: str):
+    def __init__(self, name: str, *args: str, config=None):
+        """``config(dir)``, when given, returns the text of the home's
+        ``config/config.toml``, and the address is left to that file."""
         self.name = name
         self.dir = tempfile.mkdtemp(prefix="tmtpu-sc-")
         sock = os.path.join(self.dir, "s.sock")
         addr = f"unix://{sock}" if len(sock) < 100 else "tcp://127.0.0.1:0"
+        if config is not None:
+            os.makedirs(os.path.join(self.dir, "config"))
+            with open(os.path.join(self.dir, "config", "config.toml"), "w") as fh:
+                fh.write(config(self.dir))
+        else:
+            args = ("--addr", addr) + args
         self.err_path = os.path.join(self.dir, "stderr.log")
         self.err = open(self.err_path, "w")
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "tmtpu_torch", "sidecar", "--addr", addr,
-             "--home", self.dir, *args],
+            [sys.executable, "-m", "tmtpu_torch", "sidecar", "--home", self.dir, *args],
             cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
             stderr=self.err, text=True)
         self.lines: queue.Queue = queue.Queue()
@@ -755,6 +770,7 @@ class Daemon:
             self.kill()
             check(False, f"daemon {name} ready ({ready!r}; {err})")
         self.start_s = time.perf_counter() - t0
+        self.ready = ready
         self.addr = ready.split()[3]
         self.warm_s = float(ready.split("warm_s=")[1].split()[0])
         print(f"sidecar daemon {name}: ready in {self.start_s:.1f} s "
@@ -977,6 +993,97 @@ def sidecar_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
               f"{routed}, launches {launch_delta(before, after)}, mask and tally exact")
         z.terminate()
         print("sidecar daemons: all three drained and exited 0 on SIGTERM")
+    except Exception:
+        for d in daemons:
+            print(f"--- daemon {d.name} stderr ---\n{d.stderr()}", file=sys.stderr)
+        raise
+    finally:
+        for d in daemons:
+            d.kill()
+    return out
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(url: str):
+    """(status, content type, body) of a GET, 4xx and 5xx included."""
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.headers["Content-Type"], r.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.headers["Content-Type"], exc.read().decode()
+
+
+def sidecar_config_and_health(pks, msgs, sigs, expect, card) -> dict:
+    """(e) a daemon configured by its home's config.toml alone, and (f) its
+    health listener: /healthz, then /metrics against Stats after one
+    10,000-lane request."""
+    n = len(sigs)
+    lanes = list(zip(pks, msgs, sigs, [POWER] * n))
+    out = {}
+    daemons = []
+    try:
+        # (e) the address, the lane cap and the deadline from the file
+        lane_cap, deadline_ns = 12345, 7_500_000_000
+
+        def config(home):
+            sock = os.path.join(home, "from-config.sock")
+            out["config_addr"] = (f"unix://{sock}" if len(sock) < 100
+                                  else f"tcp://127.0.0.1:{free_port()}")
+            return (f'crypto_backend = "sidecar"\n\n[sidecar]\naddr = "{out["config_addr"]}"\n'
+                    f"max_lanes_per_dispatch = {lane_cap}\n"
+                    f"request_deadline_ns = {deadline_ns}\n")
+
+        x = Daemon("config home", config=config)
+        daemons.append(x)
+        check(x.addr == out["config_addr"],
+              f"sidecar (e): listens at the file's address ({x.addr} vs {out['config_addr']})")
+        c = x.client("config")
+        ack = c.connect()
+        limits = x.stats()["limits"]
+        check(ack.max_lanes == lane_cap and limits["max_lanes_per_dispatch"] == lane_cap
+              and limits["request_deadline_s"] == deadline_ns / 1e9,
+              f"sidecar (e): the file's limits (ack {ack.max_lanes}, stats {limits})")
+        mask, tallied, _ = c.verify(crypto_batch.ED25519, lanes[:64], tally=True, deadline_s=60.0)
+        check(mask == expect[:64].tolist(), "sidecar (e): a request at the file's address")
+        c.close()
+        print(f"sidecar (e): --home with config.toml alone: listening at {x.addr}, "
+              f"limits {limits}, HelloAck max_lanes {ack.max_lanes}")
+        x.terminate()
+
+        # (f) /healthz and /metrics
+        y = Daemon("health", "--health-laddr", f"127.0.0.1:{free_port()}")
+        daemons.append(y)
+        base = "http://" + y.ready.split("health=")[1].split()[0]
+        status, ctype, body = http_get(base + "/healthz")
+        health = json.loads(body)
+        check(status == 200 and ctype == "application/json" and health["healthy"] is True
+              and health["warmed"] is True, f"sidecar (f): /healthz ({status}, {ctype})")
+        before = y.stats()
+        c = y.client("health")
+        mask, tallied, _ = c.verify(crypto_batch.ED25519, lanes, tally=True, deadline_s=60.0)
+        c.close()
+        check(mask == expect.tolist(), "sidecar (f): mask")
+        after = y.stats()
+        status, ctype, text = http_get(base + "/metrics")
+        m = re.search(r'^tendermint_sidecar_server_dispatches_total\{curve="ed25519"\} (\d+)$',
+                      text, re.M)
+        dispatches = after["coalescer"]["dispatches"]
+        check(status == 200 and ctype == "text/plain; version=0.0.4" and m is not None
+              and int(m.group(1)) == dispatches and dispatches >= 1,
+              f"sidecar (f): /metrics dispatches {m and m.group(1)} vs Stats {dispatches}")
+        check(launch_delta(before, after)["ed25519_verify"] == 1,
+              f"sidecar (f): one launch ({launch_delta(before, after)})")
+        check(http_get(base + "/nothing")[0] == 404, "sidecar (f): 404 elsewhere")
+        out["health_dispatches"] = dispatches
+        print(f"sidecar (f): /healthz 200 healthy and warmed; after one {n}-lane request "
+              f"/metrics dispatches_total{{curve=\"ed25519\"}} {m.group(1)} = Stats "
+              f"{dispatches}, launches {launch_delta(before, after)} [{card}]")
+        y.terminate()
     except Exception:
         for d in daemons:
             print(f"--- daemon {d.name} stderr ---\n{d.stderr()}", file=sys.stderr)
@@ -1298,6 +1405,7 @@ def main() -> int:
     sigcache.invalidate_all()
     sidecar = codec_and_engine(pks, msgs, sigs, expect, card)
     sidecar.update(sidecar_phase(pks, msgs, sigs, expect, mixed, card))
+    sidecar.update(sidecar_config_and_health(pks, msgs, sigs, expect, card))
     print(f"sidecar round trip {sidecar['rtt_ms']:.3f} ms against the in-process flush of the "
           f"same run: cold {e2e_ms:.3f} ms, cache off {e2e_off_ms:.3f} ms; the engine alone "
           f"cold {sidecar['engine_cold_ms']:.3f}, cache off "

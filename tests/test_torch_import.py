@@ -70,3 +70,47 @@ _IMPORT = re.compile(r"^\s*(from|import)\s+(jax|tmtpu|cryptography)\b", re.M)
 def test_no_source_line_imports_jax_or_tmtpu(path):
     with open(os.path.join(ROOT, path), encoding="utf-8") as fh:
         assert not _IMPORT.search(fh.read())
+
+
+def test_config_and_metrics_are_covered():
+    assert {"tmtpu_torch.config", "tmtpu_torch.sidecar.metrics"} <= set(_module_names())
+
+
+# --- the tools that drive tmtpu nodes through the port's daemon ------------------
+
+_GPU_TOOLS = sorted(f for f in os.listdir(os.path.join(ROOT, "tools"))
+                    if f.startswith("gpu_") and f.endswith(".py"))
+
+
+def test_gpu_tools_load_no_jax_and_no_port_module():
+    """Each ``tools/gpu_*.py`` imports behind a hook that refuses ``jax``,
+    ``torch`` and ``tmtpu_torch``: the tools run tmtpu nodes on the machine
+    with the card, which has no JAX, and reach the port only through the
+    daemon's process."""
+    assert {"gpu_live_round.py", "gpu_localnet_ab.py"} <= set(_GPU_TOOLS)
+    names = [f"tools.{f[:-3]}" for f in _GPU_TOOLS]
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        "BLOCKED = ('jax', 'jaxlib', 'torch', 'tmtpu_torch')\n"
+        "class Refuse(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError('refused: ' + name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.startswith("ok"), proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", _GPU_TOOLS)
+def test_no_gpu_tool_line_imports_the_port(name):
+    with open(os.path.join(ROOT, "tools", name), encoding="utf-8") as fh:
+        assert not re.search(r"^\s*(from|import)\s+(tmtpu_torch|torch|jax)\b", fh.read(), re.M)

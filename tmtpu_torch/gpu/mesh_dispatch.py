@@ -147,6 +147,7 @@ def snapshot() -> Dict:
     with _lock:
         return {
             "devices": _state["devices"],
+            "mesh_devices": mesh_devices(),
             "shard_min_lanes": shard_min_lanes(),
             "dispatches": _state["dispatches"],
             "occupancy_lanes": {str(d): v for d, v in sorted(_state["occupancy"].items())},

@@ -24,8 +24,13 @@ distinct clients, traced requests).
 
 - Mesh accounting: the engine reports whether it split a dispatch across
   the mesh, and those dispatches are counted in ``mesh_dispatches``.
+- Engine failures in a row (``engine_failures()``, with the last one's
+  text) feed the daemon's health signal; a dispatch that answers resets
+  the count.
 
-The reference's metrics, timeline records and trace marks are not ported.
+The reference's ``sidecar_server_*`` metrics are kept in ``metrics``
+(``sidecar/metrics.py``); its timeline records and trace marks are not
+ported.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ import itertools
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
+
+from tmtpu_torch.sidecar.metrics import SidecarMetrics
 
 # the verify engine: (curve, pks, msgs, sigs, powers, tally) -> (mask,
 # tallied, the mesh dispatches it made: 0 or 1)
@@ -158,8 +165,10 @@ class Coalescer:
     def __init__(self, verify_fn: VerifyFn, *,
                  max_queue_lanes: int = 65536,
                  max_lanes_per_dispatch: int = 40960,
-                 scheduler: Optional[AdaptiveFlushScheduler] = None):
+                 scheduler: Optional[AdaptiveFlushScheduler] = None,
+                 metrics: Optional[SidecarMetrics] = None):
         self._verify_fn = verify_fn
+        self.metrics = metrics or SidecarMetrics()
         self._max_queue_lanes = max_queue_lanes
         self._max_lanes_per_dispatch = max_lanes_per_dispatch
         # the daemon's own scheduler: its arrivals are every client's
@@ -171,6 +180,11 @@ class Coalescer:
         self._inflight = 0            # batches cut but not yet answered
         self._dispatch_seq = 0
         self._mesh_dispatches = 0
+        self._dispatched_requests = 0
+        self._dispatches_by_curve: Dict[str, int] = {}
+        self._dispatched_lanes = 0
+        self._engine_failures = 0     # in a row; a dispatch that answers resets it
+        self._last_engine_error = ""
         self._running = False
         self._thread: Optional[threading.Thread] = None
 
@@ -219,11 +233,13 @@ class Coalescer:
             if not self._running:
                 raise Overloaded("coalescer not running")
             if self._queued_lanes + n > self._max_queue_lanes:
+                self.metrics.overloads.inc()
                 raise Overloaded(
                     f"queue full: {self._queued_lanes} lanes queued, "
                     f"+{n} exceeds cap {self._max_queue_lanes}")
             self._queues.setdefault(curve, []).append(req)
             self._queued_lanes += n
+            self.metrics.queue_lanes.set(self._queued_lanes)
             self._cond.notify_all()
         self.scheduler.note_arrivals(n)
         return req
@@ -255,7 +271,16 @@ class Coalescer:
                     "inflight_batches": self._inflight,
                     "dispatches": self._dispatch_seq,
                     "mesh_dispatches": self._mesh_dispatches,
+                    "dispatches_by_curve": dict(self._dispatches_by_curve),
+                    "dispatched_requests": self._dispatched_requests,
+                    "dispatched_lanes": self._dispatched_lanes,
                     "scheduler": self.scheduler.snapshot()}
+
+    def engine_failures(self) -> Tuple[int, str]:
+        """Engine failures since the last dispatch that answered, and the
+        last failure's text."""
+        with self._lock:
+            return self._engine_failures, self._last_engine_error
 
     # --- dispatcher ---
 
@@ -300,6 +325,7 @@ class Coalescer:
                         taken += len(r)
                     self._queued_lanes -= taken
                     self._inflight += 1
+                    self.metrics.queue_lanes.set(self._queued_lanes)
                     break
                 if not self._running:
                     return
@@ -310,6 +336,15 @@ class Coalescer:
                     with self._cond:
                         self._inflight -= 1
                         self._cond.notify_all()
+
+    def _engine_failed(self, live: List[PendingRequest], error: str) -> None:
+        with self._lock:
+            self._engine_failures += 1
+            self._last_engine_error = error
+        for req in live:
+            req.error = error
+            req.failure = "engine"
+            req.done.set()
 
     def _dispatch(self, curve: str, batch: List[PendingRequest]) -> None:
         # expired requests are answered without spending device lanes
@@ -340,23 +375,31 @@ class Coalescer:
             mask, _tallied, meshed = self._verify_fn(curve, pks, msgs, sigs, powers, tally)
         except Exception as exc:  # noqa: BLE001 - an engine failure must not
             # wedge clients: they get an error verdict, never a mask
-            for req in live:
-                req.error = f"verify engine failed: {exc}"
-                req.failure = "engine"
-                req.done.set()
+            self._engine_failed(live, f"verify engine failed: {exc}")
             return
         self.scheduler.note_dispatch(len(sigs), time.perf_counter() - t0)
+        m = self.metrics
+        m.dispatches.inc(curve=curve)
+        m.dispatch_lanes.observe(len(sigs), curve=curve)
+        m.dispatch_clients.observe(clients)
         if meshed:
-            with self._lock:
-                self._mesh_dispatches += meshed
-        traced = sum(req.traced for req in live)
+            from tmtpu_torch.gpu import mesh_dispatch
+
+            m.mesh_dispatches.inc(meshed, curve=curve)
+            for dev, lanes in mesh_dispatch.snapshot()["occupancy_lanes"].items():
+                m.mesh_occupancy.set(lanes, device=dev)
+        with self._lock:
+            self._mesh_dispatches += meshed
         if len(mask) != len(sigs):
-            for req in live:
-                req.error = (f"verify engine returned {len(mask)} verdicts "
-                             f"for {len(sigs)} lanes")
-                req.failure = "engine"
-                req.done.set()
+            self._engine_failed(live, f"verify engine returned {len(mask)} verdicts "
+                                      f"for {len(sigs)} lanes")
             return
+        with self._lock:
+            self._engine_failures = 0
+            self._dispatches_by_curve[curve] = self._dispatches_by_curve.get(curve, 0) + 1
+            self._dispatched_requests += len(live)
+            self._dispatched_lanes += len(sigs)
+        traced = sum(req.traced for req in live)
         off = 0
         for req in live:
             n = len(req)

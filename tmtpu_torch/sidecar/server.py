@@ -15,10 +15,20 @@ failure answers every request of its dispatch with the reference's
 status (``STATUS_BACKEND_DOWN``), and the node's own client decides what
 to do. As in the reference, one lane whose key has the wrong size fails
 its whole dispatch that way (the reference's engine builds a key object
-from every lane, and the constructor raises). The reference's health HTTP
-listener, metrics and trace spans are not ported; a v2 trace context is
-advisory, never rejected, and counted in ``dispatch_traces`` when it
-passes the reference's strict decode.
+from every lane, and the constructor raises). The reference's trace
+spans are not ported; a v2 trace context is advisory, never rejected, and
+counted in ``dispatch_traces`` when it passes the reference's strict
+decode.
+
+Health (``health_laddr``, ``host:port``): an HTTP listener serves
+``/healthz`` (200 or 503, ``{"healthy": ..., **snapshot()}`` as JSON) and
+``/metrics`` (the reference's ``sidecar_server_*`` families,
+``sidecar/metrics.py``), 404 elsewhere, as the reference's does. With no
+breaker to read, the port's signal is its engine: unhealthy once
+``failure_threshold`` dispatches in a row have failed (the reference's
+``[crypto] breaker_failure_threshold``, after which its device breaker
+opens), healthy again after one that answers. It changes no routing: a
+failed dispatch is answered ``STATUS_BACKEND_DOWN`` either way.
 
 Run it: ``python -m tmtpu_torch sidecar --addr unix:///path/to.sock``.
 """
@@ -26,6 +36,7 @@ Run it: ``python -m tmtpu_torch sidecar --addr unix:///path/to.sock``.
 from __future__ import annotations
 
 import hashlib
+import http.server
 import json
 import os
 import socket
@@ -39,6 +50,7 @@ from tmtpu_torch.crypto import sigcache
 from tmtpu_torch.gpu import mesh_dispatch
 from tmtpu_torch.sidecar import protocol as proto
 from tmtpu_torch.sidecar.coalescer import Coalescer, Overloaded
+from tmtpu_torch.sidecar.metrics import SidecarMetrics
 
 _FAILURE_STATUS = {
     "expired": proto.STATUS_OVERLOADED,
@@ -100,6 +112,8 @@ class SidecarServer:
                  max_lanes_per_dispatch: int = 40960,
                  max_frame_bytes: int = proto.DEFAULT_MAX_FRAME_BYTES,
                  request_deadline_s: float = 30.0,
+                 health_laddr: str = "",
+                 failure_threshold: int = 3,
                  server_id: str = "",
                  mesh_devices: Optional[int] = None,
                  shard_min_lanes: Optional[int] = None):
@@ -109,15 +123,22 @@ class SidecarServer:
         self._max_lanes_per_dispatch = max_lanes_per_dispatch
         self._max_frame_bytes = max_frame_bytes
         self._default_deadline_s = request_deadline_s
+        self.health_laddr = health_laddr
+        self._failure_threshold = failure_threshold
+        self._health_httpd = None
+        self._health_thread: Optional[threading.Thread] = None
         self.server_id = server_id or f"sidecar-{os.getpid()}"
         # the daemon owns every card on the host: its mesh knobs
         # (``[sidecar] mesh_devices`` / ``shard_min_lanes``) apply at start
         self._mesh_devices = mesh_devices
         self._shard_min_lanes = shard_min_lanes
+        self._max_queue_lanes = max_queue_lanes
+        self.metrics = SidecarMetrics()
         self.coalescer = Coalescer(
             self._engine_verify,
             max_queue_lanes=max_queue_lanes,
-            max_lanes_per_dispatch=max_lanes_per_dispatch)
+            max_lanes_per_dispatch=max_lanes_per_dispatch,
+            metrics=self.metrics)
         self._listener: Optional[socket.socket] = None
         self._accept_thread: Optional[threading.Thread] = None
         self._conns: set = set()
@@ -194,6 +215,8 @@ class SidecarServer:
         mesh_dispatch.set_overrides(mesh_devices=self._mesh_devices,
                                     shard_min_lanes=self._shard_min_lanes)
         self.coalescer.start()
+        if self.health_laddr:
+            self._start_health_http()
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="sidecar-accept", daemon=True)
         self._accept_thread.start()
@@ -238,6 +261,12 @@ class SidecarServer:
             except OSError:
                 pass
         self.coalescer.stop()
+        httpd, self._health_httpd = self._health_httpd, None
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+            self._health_thread.join(timeout=5.0)
+            self._health_thread = None
         if self._accept_thread is not None:
             self._accept_thread.join(timeout=5.0)
             self._accept_thread = None
@@ -250,6 +279,7 @@ class SidecarServer:
     def snapshot(self) -> Dict:
         with self._conns_lock:
             n_conns = len(self._conns)
+        failures, last_error = self.coalescer.engine_failures()
         return {
             "server_id": self.server_id,
             "addr": self.addr,
@@ -259,12 +289,24 @@ class SidecarServer:
             "draining": self._draining,
             "uptime_s": round(max(0.0, time.monotonic() - self._started_at), 3),
             "connections": n_conns,
+            "limits": {"max_queue_lanes": self._max_queue_lanes,
+                       "max_lanes_per_dispatch": self._max_lanes_per_dispatch,
+                       "max_frame_bytes": self._max_frame_bytes,
+                       "request_deadline_s": self._default_deadline_s},
             "coalescer": self.coalescer.snapshot(),
             "mesh": mesh_dispatch.snapshot(),
             "sigcache": sigcache.stats(),
             "engine": {"last_cache_stats": self._last_cache_stats,
-                       "launches": launch_counts()},
+                       "launches": launch_counts(),
+                       "failures": failures,
+                       "failure_threshold": self._failure_threshold,
+                       "last_error": last_error},
         }
+
+    def healthy(self) -> bool:
+        """False once ``failure_threshold`` engine dispatches in a row have
+        failed, until one answers."""
+        return self.coalescer.engine_failures()[0] < self._failure_threshold
 
     # --- connection handling ---
 
@@ -279,12 +321,14 @@ class SidecarServer:
                 return  # listener closed
             with self._conns_lock:
                 self._conns.add(conn)
+                self.metrics.connections.set(len(self._conns))
             threading.Thread(target=self._serve_conn, args=(conn,),
                              name="sidecar-conn", daemon=True).start()
 
     def _drop_conn(self, conn) -> None:
         with self._conns_lock:
             self._conns.discard(conn)
+            self.metrics.connections.set(len(self._conns))
         try:
             conn.close()
         except OSError:
@@ -300,6 +344,7 @@ class SidecarServer:
                 conn.sendall(data)
 
         def protocol_error(exc) -> None:
+            self.metrics.protocol_errors.inc(kind="bad-frame")
             try:
                 send(proto.ErrorReply(code=proto.ERR_PROTOCOL, message=str(exc)))
             except OSError:
@@ -314,17 +359,21 @@ class SidecarServer:
                 protocol_error(exc)
                 return
             if not isinstance(first, proto.Hello):
+                self.metrics.protocol_errors.inc(kind="no-hello")
                 send(proto.ErrorReply(
                     code=proto.ERR_PROTOCOL,
                     message=f"expected Hello, got {type(first).__name__}"))
                 return
             if first.version not in proto.SUPPORTED_VERSIONS:
+                self.metrics.protocol_errors.inc(kind="version-mismatch")
                 send(proto.ErrorReply(
                     code=proto.ERR_VERSION,
                     message=f"protocol version {first.version} not in "
                             f"server-supported {list(proto.SUPPORTED_VERSIONS)}"))
                 return
             client_id = first.client_id or "anon"
+            requests = self.metrics.requests
+            requests.inc(type="hello")
             send(proto.HelloAck(
                 version=min(first.version, proto.PROTOCOL_VERSION),
                 server_id=self.server_id,
@@ -335,19 +384,24 @@ class SidecarServer:
                 try:
                     body = reader.read_body()
                     if body and body[0] == proto.VERIFY_REQUEST_TYPE:
-                        self._handle_verify(client_id, proto.decode_verify_columns(body), send)
+                        columns = proto.decode_verify_columns(body)
+                        requests.inc(type="verify")
+                        self._handle_verify(client_id, columns, send)
                         continue
                     msg = proto.decode_frame(body)
                 except proto.ProtocolError as exc:
                     protocol_error(exc)
                     return  # framing is lost; the stream cannot recover
                 if isinstance(msg, proto.Ping):
+                    requests.inc(type="ping")
                     send(proto.Pong(
                         nonce=msg.nonce, backend=self.backend_name(),
                         uptime_ms=int((time.monotonic() - self._started_at) * 1000)))
                 elif isinstance(msg, proto.StatsRequest):
+                    requests.inc(type="stats")
                     send(proto.StatsResponse(stats_json=json.dumps(self.snapshot()).encode()))
                 else:
+                    self.metrics.protocol_errors.inc(kind="unexpected-type")
                     send(proto.ErrorReply(code=proto.ERR_PROTOCOL,
                                           message=f"unexpected {type(msg).__name__}"))
         except (EOFError, OSError):
@@ -414,3 +468,42 @@ class SidecarServer:
         # answer off-thread so the connection keeps reading: one client can
         # pipeline request ids, and they coalesce with each other
         threading.Thread(target=finish, name="sidecar-reply", daemon=True).start()
+
+    # --- health HTTP ---
+
+    def _start_health_http(self) -> None:
+        """Listen on ``health_laddr``; port 0 takes a free port, written back
+        to ``health_laddr``."""
+        server = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):  # quiet
+                pass
+
+            def do_GET(self):
+                if self.path.startswith("/healthz"):
+                    healthy = server.healthy()
+                    body = json.dumps({"healthy": healthy, **server.snapshot()}).encode()
+                    self.send_response(200 if healthy else 503)
+                    ctype = "application/json"
+                elif self.path.startswith("/metrics"):
+                    body = server.metrics.render().encode()
+                    self.send_response(200)
+                    ctype = "text/plain; version=0.0.4"
+                else:
+                    body = b"not found\n"
+                    self.send_response(404)
+                    ctype = "text/plain"
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        host, _sep, port = self.health_laddr.rpartition(":")
+        host = host or "127.0.0.1"
+        httpd = http.server.ThreadingHTTPServer((host, int(port)), Handler)
+        self.health_laddr = f"{host}:{httpd.server_address[1]}"
+        self._health_httpd = httpd
+        self._health_thread = threading.Thread(
+            target=httpd.serve_forever, name="sidecar-health", daemon=True)
+        self._health_thread.start()
