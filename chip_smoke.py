@@ -36,7 +36,12 @@ on one, then (e) a daemon given only ``--home``, whose
 ``config/config.toml`` (written by this script) sets its address, lane
 cap and request deadline, and (f) a daemon with ``--health-laddr``:
 ``/healthz`` healthy and warmed, and after one 10,000-lane request
-``/metrics`` counting the dispatches that Stats counts; every mask, tally,
+``/metrics`` counting the dispatches that Stats counts, and (g) a daemon
+sent light-client traffic: one request of 4 validators x 1,024 heights
+(4,096 lanes, keys repeating every four lanes, one signature forged),
+held against the serial oracle, then 20 four-lane requests one after
+another, bisection's shape, timed, and the same on a daemon with no
+gather window (``--gather-ms 0``); every mask, tally,
 cache breakdown and launch count is checked,
 the codec and the in-process engine are timed alone, and each daemon must
 exit 0 on SIGTERM. Before the daemons, the mesh phase splits the sets
@@ -106,6 +111,8 @@ from tmtpu_torch.sidecar import protocol as sc_proto
 from tmtpu_torch.sidecar.client import SidecarClient
 from tmtpu_torch.sidecar.server import launch_counts as launches
 from tmtpu_torch.types.vote import MAX_VOTES_COUNT, PRECOMMIT, vote_sign_bytes
+from tools.gpu_common import launch_delta, smi_line
+from tools.gpu_port_common import check, reset_launches, serial_mask, time_cuda, time_host
 
 CHAIN_ID = "tmtpu-torch-smoke"
 SEED = 20261016
@@ -172,10 +179,15 @@ SIDECAR_CLIENTS = 4  # validator processes sharing the card in phase (b)
 GATHER_MS = 2000     # the fixed gather window that lets all four ride one dispatch
 READY_TIMEOUT_S = 300
 
-
-def check(cond: bool, what: str) -> None:
-    if not cond:
-        raise RuntimeError(f"check failed: {what}")
+# (g) light-client-shaped traffic: a run of the sequential sync (4
+# validators x 1,024 heights, tools/light_bench.py's default run) in one
+# request, one signature forged, then bisection's four-lane requests
+LIGHT_CHAIN_ID = "tmtpu-torch-smoke-light"
+LIGHT_VALS = 4
+LIGHT_HEIGHTS = 1024
+LIGHT_HOPS = 20
+LIGHT_POWER = 10
+LIGHT_FORGED = (700, 2)  # (height, validator index)
 
 
 def cpu_model() -> str:
@@ -188,12 +200,6 @@ def cpu_model() -> str:
     except OSError:
         pass
     return "CPU model not known"
-
-
-def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def _priv_key(curve: str, i: int):
@@ -213,10 +219,23 @@ def sign_vote(task):
     return priv.pub_key().bytes(), msg, priv.sign(msg)
 
 
-def sign_all(tasks):
+def sign_light(task):
+    """Light validator v's precommit for height h of the light chain: its
+    public key, sign bytes and signature (pool worker)."""
+    v, h = task
+    priv = PrivKeyEd25519(hashlib.sha256(f"{SEED}:light:{v}".encode()).digest())
+    block_id = (hashlib.sha256(b"light-block %d" % h).digest(), 1,
+                hashlib.sha256(b"light-parts %d" % h).digest())
+    msg = vote_sign_bytes(LIGHT_CHAIN_ID, PRECOMMIT, h, 0, block_id,
+                          T0_NS + h * 1_000_000_000 + v)
+    return priv.pub_key().bytes(), msg, priv.sign(msg)
+
+
+def sign_all(*jobs):
+    """[(worker, tasks)] -> each job's results, on one pool."""
     procs = min(8, os.cpu_count() or 1)
     with multiprocessing.get_context("spawn").Pool(procs) as pool:
-        return pool.map(sign_vote, tasks, chunksize=32)
+        return [pool.map(fn, tasks, chunksize=32) for fn, tasks in jobs]
 
 
 def corrupt(sig: bytes) -> bytes:
@@ -278,37 +297,6 @@ def ptxas_summary(log: str) -> str:
     return (f"{','.join(regs)} registers, spill stores/loads "
             f"{','.join(f'{a}/{b}' for a, b in spill)} B, stack {','.join(stack)} B, "
             f"static shared {','.join(smem) or '0'} B")
-
-
-def time_cuda(fn, runs: int) -> list:
-    """Per-run device times (ms) from CUDA events."""
-    times = []
-    for _ in range(runs):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return times
-
-
-def time_host(fn, runs: int, before=None) -> float:
-    """Median host-clock time (ms) of ``runs`` calls, each after an untimed
-    call of ``before`` (e.g. emptying the signature cache)."""
-    times = []
-    for _ in range(runs):
-        if before is not None:
-            before()
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
-def reset_launches() -> None:
-    kernel.LAUNCHES = kernel.SR_LAUNCHES = k1_kernel.LAUNCHES = 0
 
 
 
@@ -816,11 +804,6 @@ class Daemon:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
-def launch_delta(before: dict, after: dict) -> dict:
-    return {k: after["engine"]["launches"][k] - before["engine"]["launches"][k]
-            for k in after["engine"]["launches"]}
-
-
 def sidecar_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
     """The daemon, driven over its socket by the port's client. ``mixed`` is
     {curve: (pks, msgs, sigs, expect)} of the mixed-curve set. Returns the
@@ -1094,6 +1077,83 @@ def sidecar_config_and_health(pks, msgs, sigs, expect, card) -> dict:
     return out
 
 
+def light_phase(light, card) -> dict:
+    """(g) light-client-shaped traffic through a daemon of its own: one
+    request of 4 validators x 1,024 heights (a run of the sequential sync:
+    4,096 lanes, the keys repeating every four lanes, every message a
+    distinct precommit) with one forged signature, held against the serial
+    oracle; then ``LIGHT_HOPS`` four-lane requests of later heights one
+    after another (bisection's shape, with the tally), their round trips
+    timed. Then the same on a daemon with no gather window and no cache,
+    so the run repeats (three times): what the window adds to a lone
+    client's round trip. ``light`` is [(pk, msg, sig)] height-major."""
+    pks, msgs, sigs = (list(col) for col in zip(*light))
+    n_run = LIGHT_VALS * LIGHT_HEIGHTS
+    forged = (LIGHT_FORGED[0] - 1) * LIGHT_VALS + LIGHT_FORGED[1]
+    sigs[forged] = corrupt(sigs[forged])
+    want = serial_mask(["ed25519"] * len(sigs), pks, msgs, sigs)
+    check(np.flatnonzero(~want).tolist() == [forged],
+          f"light (g): the oracle rejects the forged lane alone ({np.flatnonzero(~want)})")
+    run_lanes = list(zip(pks[:n_run], msgs[:n_run], sigs[:n_run], [LIGHT_POWER] * n_run))
+    out = {}
+
+    def drive(d, runs, what):
+        """The run ``runs`` times, then the hops; each request one launch.
+        Returns (run round trips, hop round trips) in ms and the daemon's
+        launches of each kernel over them."""
+        before = d.stats()
+        c = d.client("light-client")
+        run_ms, hop_ms = [], []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            mask, _, info = c.verify(crypto_batch.ED25519, run_lanes, tally=False,
+                                     deadline_s=60.0)
+            run_ms.append((time.perf_counter() - t0) * 1e3)
+            check(mask == want[:n_run].tolist() and info["dispatch_lanes"] == n_run,
+                  f"light (g), {what}: one dispatch of the run, its mask the oracle's, "
+                  f"the forged lane included ({info})")
+        for hop in range(LIGHT_HOPS):
+            lo = n_run + LIGHT_VALS * hop
+            lanes = [(pks[j], msgs[j], sigs[j], LIGHT_POWER) for j in range(lo, lo + LIGHT_VALS)]
+            t0 = time.perf_counter()
+            mask, tallied, _ = c.verify(crypto_batch.ED25519, lanes, tally=True, deadline_s=60.0)
+            hop_ms.append((time.perf_counter() - t0) * 1e3)
+            check(mask == [True] * LIGHT_VALS and tallied == LIGHT_POWER * LIGHT_VALS,
+                  f"light (g), {what}: hop {hop}'s mask and tally ({mask}, {tallied})")
+        c.close()
+        counted = launch_delta(before, d.stats())
+        check(counted == {"ed25519_verify": runs + LIGHT_HOPS, "sr25519_verify": 0,
+                          "k1_verify": 0},
+              f"light (g), {what}: one launch a request ({counted})")
+        d.terminate()
+        return run_ms, hop_ms, counted
+
+    for name, args, runs, key in (("light", (), 1, ""),
+                                  ("light, no gather window",
+                                   ("--gather-ms", "0", "--no-sigcache"), 3, "_no_window")):
+        d = Daemon(name, *args)
+        try:
+            run_ms, hop_ms, counted = drive(d, runs, name)
+        except Exception:
+            print(f"--- daemon {d.name} stderr ---\n{d.stderr()}", file=sys.stderr)
+            raise
+        finally:
+            d.kill()
+        out.update({f"light_run_rtt_ms{key}": statistics.median(run_ms),
+                    f"light_run_rtt_ms{key}_all": run_ms,
+                    f"light_hop_rtt_ms{key}": statistics.median(hop_ms),
+                    f"light_hop_rtt_ms{key}_all": hop_ms,
+                    f"light_launches{key}": counted["ed25519_verify"]})
+        print(f"light (g), daemon {name!r} {' '.join(args)}: {LIGHT_VALS} validators x "
+              f"{LIGHT_HEIGHTS} heights in one request ({n_run} lanes, the forged signature "
+              f"at height {LIGHT_FORGED[0]}, validator {LIGHT_FORGED[1]}): mask equals the "
+              f"serial oracle's, round trip {statistics.median(run_ms):.3f} ms (median of "
+              f"{runs}); {LIGHT_HOPS} four-lane requests one after another: round trip "
+              f"{statistics.median(hop_ms):.3f} ms median (min {min(hop_ms):.3f}, max "
+              f"{max(hop_ms):.3f}); launches {counted} [{card}]")
+    return out
+
+
 def codec_and_engine(pks, msgs, sigs, expect, card) -> dict:
     """The codec and the daemon's engine on the 10,000-lane request, each
     alone (medians of 5): the port client's encode, the reference-style
@@ -1192,6 +1252,8 @@ def main() -> int:
 
     # 1. device
     card = smi_line()
+    check(bool(card) and not card.startswith("nvidia-smi unavailable"),
+          f"nvidia-smi reads the card ({card!r})")
     dev_info = device_mod.describe()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1215,11 +1277,13 @@ def main() -> int:
     tasks = ([(crypto_batch.ED25519, i) for i in range(n)]
              + [(crypto_batch.SR25519, i) for i in range(N_SR)]
              + [(crypto_batch.SECP256K1, i) for i in range(N_K1)])
-    signed = sign_all(tasks)
+    light_tasks = [(v, h) for h in range(1, LIGHT_HEIGHTS + LIGHT_HOPS + 1)
+                   for v in range(LIGHT_VALS)]
+    signed, light = sign_all((sign_vote, tasks), (sign_light, light_tasks))
     ed_signed, sr_signed, k1_signed = (signed[:n], signed[n:n + N_SR],
                                        signed[n + N_SR:])
-    print(f"signed {n} ed25519, {N_SR} sr25519 and {N_K1} secp256k1 votes in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"signed {n} ed25519, {N_SR} sr25519 and {N_K1} secp256k1 votes and "
+          f"{len(light)} light-chain precommits in {time.perf_counter() - t0:.1f} s")
 
     # 4. the ed25519 path, counted
     pks, msgs, sigs, expect = ed_set(ed_signed)
@@ -1406,6 +1470,7 @@ def main() -> int:
     sidecar = codec_and_engine(pks, msgs, sigs, expect, card)
     sidecar.update(sidecar_phase(pks, msgs, sigs, expect, mixed, card))
     sidecar.update(sidecar_config_and_health(pks, msgs, sigs, expect, card))
+    sidecar.update(light_phase(light, card))
     print(f"sidecar round trip {sidecar['rtt_ms']:.3f} ms against the in-process flush of the "
           f"same run: cold {e2e_ms:.3f} ms, cache off {e2e_off_ms:.3f} ms; the engine alone "
           f"cold {sidecar['engine_cold_ms']:.3f}, cache off "

@@ -1,7 +1,9 @@
 """The port stands alone: no module of tmtpu_torch, and none of chip_smoke.py,
 kernel_times.py and bench_torch.py, imports jax or anything of the JAX package tmtpu, nor the ``cryptography``
 package (the machine with the card has none; the port signs and verifies
-secp256k1 with its own pure-Python curve)."""
+secp256k1 with its own pure-Python curve). The device tools ``tools/gpu_*.py``
+keep one of two rules: node-side tools load no ``tmtpu_torch``, ``torch`` or
+``jax``; port-side tools load no ``tmtpu`` or ``jax``."""
 
 import os
 import re
@@ -76,28 +78,29 @@ def test_config_and_metrics_are_covered():
     assert {"tmtpu_torch.config", "tmtpu_torch.sidecar.metrics"} <= set(_module_names())
 
 
-# --- the tools that drive tmtpu nodes through the port's daemon ------------------
+# --- the device tools, tools/gpu_*.py ---------------------------------------------
 
 _GPU_TOOLS = sorted(f for f in os.listdir(os.path.join(ROOT, "tools"))
                     if f.startswith("gpu_") and f.endswith(".py"))
+# node-side: import tmtpu, reach the port only through the daemon's process
+NODE_SIDE = ("gpu_common.py", "gpu_light_bench.py", "gpu_live_round.py",
+             "gpu_localnet_ab.py", "gpu_localnet_mesh_ab.py")
+# port-side: import tmtpu_torch, torch and numpy, as bench_torch.py does
+PORT_SIDE = ("gpu_breakdown.py", "gpu_curve_bench.py", "gpu_port_common.py")
 
 
-def test_gpu_tools_load_no_jax_and_no_port_module():
-    """Each ``tools/gpu_*.py`` imports behind a hook that refuses ``jax``,
-    ``torch`` and ``tmtpu_torch``: the tools run tmtpu nodes on the machine
-    with the card, which has no JAX, and reach the port only through the
-    daemon's process."""
-    assert {"gpu_live_round.py", "gpu_localnet_ab.py"} <= set(_GPU_TOOLS)
-    names = [f"tools.{f[:-3]}" for f in _GPU_TOOLS]
+def _import_behind_hook(names, blocked):
+    """Import ``names`` in a fresh interpreter whose import hook refuses
+    ``blocked``; then require that none of them was loaded."""
     code = (
         "import importlib, importlib.abc, sys\n"
-        "BLOCKED = ('jax', 'jaxlib', 'torch', 'tmtpu_torch')\n"
+        f"BLOCKED = {tuple(blocked)!r}\n"
         "class Refuse(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path, target=None):\n"
         "        if name.split('.')[0] in BLOCKED:\n"
         "            raise ImportError('refused: ' + name)\n"
         "sys.meta_path.insert(0, Refuse())\n"
-        f"for name in {names!r}:\n"
+        f"for name in {list(names)!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
         "assert not bad, bad\n"
@@ -110,7 +113,35 @@ def test_gpu_tools_load_no_jax_and_no_port_module():
     assert proc.returncode == 0 and proc.stdout.startswith("ok"), proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("name", _GPU_TOOLS)
+def test_every_gpu_tool_keeps_one_import_rule():
+    assert set(_GPU_TOOLS) == set(NODE_SIDE) | set(PORT_SIDE)
+    assert not set(NODE_SIDE) & set(PORT_SIDE)
+
+
+def test_gpu_tools_load_no_jax_and_no_port_module():
+    """Each node-side ``tools/gpu_*.py`` imports behind a hook that refuses
+    ``jax``, ``torch`` and ``tmtpu_torch``: the tools run tmtpu nodes on the
+    machine with the card, and reach the port only through the daemon's
+    process."""
+    assert {"gpu_live_round.py", "gpu_localnet_ab.py"} <= set(NODE_SIDE)
+    _import_behind_hook([f"tools.{f[:-3]}" for f in NODE_SIDE],
+                        ("jax", "jaxlib", "torch", "tmtpu_torch"))
+
+
+def test_port_side_gpu_tools_load_no_jax_and_no_tmtpu():
+    """Each port-side ``tools/gpu_*.py`` imports behind a hook that refuses
+    ``jax`` and ``tmtpu``: they drive the port's modules directly, as
+    bench_torch.py does."""
+    _import_behind_hook([f"tools.{f[:-3]}" for f in PORT_SIDE], ("jax", "jaxlib", "tmtpu"))
+
+
+@pytest.mark.parametrize("name", NODE_SIDE)
 def test_no_gpu_tool_line_imports_the_port(name):
     with open(os.path.join(ROOT, "tools", name), encoding="utf-8") as fh:
         assert not re.search(r"^\s*(from|import)\s+(tmtpu_torch|torch|jax)\b", fh.read(), re.M)
+
+
+@pytest.mark.parametrize("name", PORT_SIDE)
+def test_no_port_side_tool_line_imports_tmtpu(name):
+    with open(os.path.join(ROOT, "tools", name), encoding="utf-8") as fh:
+        assert not _IMPORT.search(fh.read())

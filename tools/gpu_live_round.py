@@ -41,12 +41,7 @@ import hashlib
 import json
 import multiprocessing
 import os
-import queue
-import shutil
-import signal
-import subprocess
 import sys
-import tempfile
 import threading
 import time
 
@@ -54,6 +49,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from tmtpu.crypto import ed25519, secp256k1, sr25519  # noqa: E402
+from tools.gpu_common import Daemon, launch_delta, smi_line  # noqa: E402
 
 CHAIN_ID = "live-round-chain"
 CURVES = ("ed25519", "sr25519", "secp256k1")
@@ -64,7 +60,6 @@ _PRIV = {"ed25519": ed25519.PrivKeyEd25519, "sr25519": sr25519.PrivKeySr25519,
 _PUB = {"ed25519": ed25519.PubKeyEd25519, "sr25519": sr25519.PubKeySr25519,
         "secp256k1": secp256k1.PubKeySecp256k1}
 FULL_SCALE = 5000
-READY_TIMEOUT_S = 600.0  # the kernels' build and the warm-up
 ROUND_TIMEOUT_S = 900.0
 
 
@@ -80,76 +75,6 @@ def _sign(task):
     curve, priv_bytes, msgs = task
     priv = _PRIV[curve](priv_bytes)
     return [priv.sign(m) for m in msgs]
-
-
-def smi_line() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=30).stdout.strip()
-    except (OSError, subprocess.SubprocessError) as exc:
-        return f"nvidia-smi unavailable ({exc})"
-
-
-class Daemon:
-    """``python -m tmtpu_torch sidecar`` on a unix socket in a temporary
-    home (on local TCP where that path is too long for a socket), until
-    ``stop()``."""
-
-    def __init__(self, device, ready_timeout_s=READY_TIMEOUT_S):
-        self.home = tempfile.mkdtemp(prefix="tmtpu-lr-")
-        sock = os.path.join(self.home, "sc.sock")
-        addr = f"unix://{sock}" if len(sock) < 100 else "tcp://127.0.0.1:0"
-        args = [sys.executable, "-m", "tmtpu_torch", "sidecar", "--home", self.home,
-                "--addr", addr]
-        if device:
-            args += ["--device", device]
-        self.err_path = os.path.join(self.home, "stderr.log")
-        self._err = open(self.err_path, "w")
-        self.proc = subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE,
-                                     stderr=self._err, text=True,
-                                     env=dict(os.environ, PYTHONPATH=ROOT))
-        lines: queue.Queue = queue.Queue()
-        threading.Thread(target=lambda: [lines.put(ln) for ln in self.proc.stdout],
-                         daemon=True).start()
-        t0 = time.perf_counter()
-        try:
-            self.ready = lines.get(timeout=ready_timeout_s)
-        except queue.Empty:
-            self.ready = ""
-        self.start_s = time.perf_counter() - t0
-        if not self.ready.startswith("Sidecar listening on "):
-            err = self.stderr()
-            self.stop()
-            raise RuntimeError(f"daemon not ready: {self.ready!r}\n{err}")
-        self.addr = self.ready.split()[3]
-
-    def stderr(self) -> str:
-        self._err.flush()
-        with open(self.err_path) as fh:
-            return fh.read()[-4000:]
-
-    def stats(self) -> dict:
-        from tmtpu.sidecar.client import SidecarClient
-
-        c = SidecarClient(self.addr, client_id="live-round-stats", connect_timeout_s=10.0)
-        try:
-            return c.stats()
-        finally:
-            c.close()
-
-    def stop(self) -> int:
-        """SIGTERM, then the exit code (killed after 60 s: -9)."""
-        if self.proc.poll() is None:
-            self.proc.send_signal(signal.SIGTERM)
-            try:
-                self.proc.wait(timeout=60)
-            except subprocess.TimeoutExpired:
-                self.proc.kill()
-                self.proc.wait()
-        self._err.close()
-        shutil.rmtree(self.home, ignore_errors=True)
-        return self.proc.returncode
 
 
 def co_signers(n, mixed, seed, pool):
@@ -310,8 +235,7 @@ def run(args) -> dict:
     lanes = coal1["dispatched_lanes"] - coal0["dispatched_lanes"]
     by_curve = {c: coal1["dispatches_by_curve"].get(c, 0)
                 - coal0["dispatches_by_curve"].get(c, 0) for c in CURVES}
-    launches = {k: stats1["engine"]["launches"][k] - stats0["engine"]["launches"][k]
-                for k in stats1["engine"]["launches"]}
+    launches = launch_delta(stats0, stats1)
     on_card = stats1["backend"] == "gpu"
     t_inject = t.get("inject", t["proposal"])
     # the round's flushes, up to the commit, and the seconds of the window

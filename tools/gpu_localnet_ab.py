@@ -40,7 +40,7 @@ from tmtpu.crypto import batch as crypto_batch  # noqa: E402
 from tmtpu.libs import breaker as _bk  # noqa: E402
 from tmtpu.libs import metrics as _m  # noqa: E402
 from tools import ab_common  # noqa: E402
-from tools.gpu_live_round import Daemon, smi_line  # noqa: E402
+from tools.gpu_common import Daemon, launch_delta, smi_line  # noqa: E402
 
 CHAIN_ID = "gpu-localnet-ab-chain"
 
@@ -123,8 +123,7 @@ def run_sidecar(window_s: float, device, boot_timeout_s: float) -> dict:
     requests = c1["dispatched_requests"] - c0["dispatched_requests"]
     out = _arm("sidecar", blocks, wall, dispatches,
                c1["dispatched_lanes"] - c0["dispatched_lanes"])
-    launches = {k: stats["engine"]["launches"][k] - marks["stats"]["engine"]["launches"][k]
-                for k in stats["engine"]["launches"]}
+    launches = launch_delta(marks["stats"], stats)
     out.update(requests_coalesced=requests,
                mean_requests_per_dispatch=requests / max(1, dispatches),
                launches=launches, fallback_lanes=fallback, breaker_state=br.state,
