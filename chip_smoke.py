@@ -36,7 +36,9 @@ on one, then (e) a daemon given only ``--home``, whose
 ``config/config.toml`` (written by this script) sets its address, lane
 cap and request deadline, and (f) a daemon with ``--health-laddr``:
 ``/healthz`` healthy and warmed, and after one 10,000-lane request
-``/metrics`` counting the dispatches that Stats counts, and (g) a daemon
+``/metrics`` counting the dispatches, the ed25519 batches (one a launch)
+and the cache's counters that Stats counts, then one trace context
+received and one refused for a valid and a garbage v2 context, and (g) a daemon
 sent light-client traffic: one request of 4 validators x 1,024 heights
 (4,096 lanes, keys repeating every four lanes, one signature forged),
 held against the serial oracle, then 20 four-lane requests one after
@@ -50,7 +52,11 @@ across a mesh (every card, or four shards of the one card) through
 checks the production gate of a ``TorchBatchVerifier`` flush opted in to
 the mesh, and calls ``entry()`` and ``dryrun_multichip``; every other
 phase runs with the mesh off, the port's default, on any number of
-cards.
+cards. Before the mesh, the observability phase reads the spans of the
+real flush (``tmtpu_torch/libs/trace.py``): the cold 10,000-lane flush's
+tree and stage times, with the execute stage's device time held within
+15% of the kernel alone; one execute span a curve for the mixed set; and
+the cold flush with tracing on against off, in turns.
 
 Each flush runs with every launch counter set to 0 just before it and read
 just after. Then each kernel is held against its plain PyTorch version on
@@ -107,6 +113,7 @@ from tmtpu_torch.gpu import mesh_dispatch as md
 from tmtpu_torch.gpu import k1_verify as kv
 from tmtpu_torch.gpu import sr_verify as sv
 from tmtpu_torch.gpu import verify as tv
+from tmtpu_torch.libs import trace
 from tmtpu_torch.sidecar import protocol as sc_proto
 from tmtpu_torch.sidecar.client import SidecarClient
 from tmtpu_torch.sidecar.server import launch_counts as launches
@@ -171,6 +178,12 @@ BAD_PER_CURVE = 5
 CURVE_ORDER = (crypto_batch.ED25519, crypto_batch.SR25519, crypto_batch.SECP256K1)
 
 P60 = 2**60  # MAX_TOTAL_VOTING_POWER of the reference (tmtpu/types/validator.py)
+
+# observability (iii): cold flushes traced and not, in turns. A flush's host
+# time spreads by a few ms from one flush to the next, so a median of 7 moves
+# by more than the 5% the check allows; 300 a side pin each median well inside it
+COST_RUNS = 300
+COST_BLOCK = 7  # the spread of medians of this many is printed beside it
 
 MESH_SHARDS = 4      # shards of the one card when the machine has one
 MESH_RAGGED = (1, 33, 127)
@@ -566,6 +579,151 @@ def tally_past_2_63(key, msg, sig) -> dict:
             out[case] = tally
     sigcache.DEFAULT.set_enabled(True)
     sigcache.invalidate_all()
+    return out
+
+
+def observability_phase(keys, msgs, sigs, expect, m_keys, m_msgs, m_sigs, m_expect,
+                        kernel_ms, card) -> dict:
+    """The device path's spans read from the real flush: (i) the cold
+    10,000-lane ed25519 verify_tally, traced, has the reference's tree
+    (``crypto.batch_verify_tally`` over prepare, device_put, execute and
+    readback, ``lanes`` 10,000), the children's sum within the parent's
+    time and that within the flush's wall time, and ``ed25519.execute``'s
+    ``device_ms`` within 15% of the kernel alone on the flush's plane,
+    timed with CUDA events, each launch after a host pause as long as the
+    flush's before its execute stage (the card runs a kernel after a pause
+    slower than back to back; ``kernel_ms``, back to back, is printed
+    beside it); (ii) the cold mixed set records one
+    ``sr25519.execute`` and one ``secp256k1.execute`` of 500 lanes each;
+    (iii) ``COST_RUNS`` cold flushes traced and as many with tracing off,
+    in turns: the median on may exceed the median off by 5% or by 0.5 ms,
+    not both."""
+    n = len(sigs)
+    bv = crypto_batch.new_batch_verifier()
+    for key, msg, sig in zip(keys, msgs, sigs):
+        bv.add(key, msg, sig, POWER)
+    out = {}
+
+    # (i) the 10,000-lane set, cold, traced
+    sigcache.invalidate_all()
+    trace.drain()
+    reset_launches()
+    t0 = time.perf_counter()
+    _ok, mask, tally = bv.verify_tally()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    out["launches"] = launches()
+    spans = trace.drain()
+    check(mask == expect.tolist() and tally == POWER * int(expect.sum()),
+          "observability (i): mask and tally")
+    check(out["launches"]["ed25519_verify"] == 1, f"observability (i): {out['launches']}")
+    roots = [sp for sp in spans if sp.parent_id is None]
+    check(len(roots) == 1 and roots[0].name == "crypto.batch_verify_tally"
+          and roots[0].attrs.get("lanes") == n and roots[0].attrs.get("impl") == "cuda",
+          f"observability (i): one root span of {n} lanes ({roots})")
+    root = roots[0]
+    children = sorted((sp for sp in spans if sp.parent_id == root.span_id),
+                      key=lambda sp: sp.start_s)
+    names = [sp.name for sp in children]
+    check(names == ["ed25519.prepare", "ed25519.device_put", "ed25519.execute",
+                    "ed25519.readback"] and len(spans) == 5,
+          f"observability (i): the reference's tree but ed25519.pad ({[sp.name for sp in spans]})")
+    check(children[0].attrs == {"lanes": n}, f"observability (i): prepare {children[0].attrs}")
+    stages = {sp.name.split(".")[1]: sp.duration_s * 1e3 for sp in children}
+    parent_ms = root.duration_s * 1e3
+    check(sum(stages.values()) <= parent_ms <= wall_ms,
+          f"observability (i): children {sum(stages.values()):.3f} <= parent {parent_ms:.3f} "
+          f"<= wall {wall_ms:.3f} ms")
+    device_ms = children[2].attrs["device_ms"]
+    # the kernel alone on the flush's plane, after the flush's idle gap:
+    # from the flush's start to its execute stage the card runs nothing
+    gap_s = children[2].start_s - t0
+    plane = torch.from_numpy(tv.prepare_batch_packed([k.bytes() for k in keys], msgs,
+                                                     sigs)[0]).cuda()
+
+    def after_pause(pause_s: float) -> float:
+        """Median of 7 launches alone, each after a host pause."""
+        times = []
+        for _ in range(7):
+            time.sleep(pause_s)
+            times += time_cuda(lambda: kernel.verify_packed(plane), 1)
+        return statistics.median(times)
+
+    alone_ms = after_pause(gap_s)
+    pauses = {ms: after_pause(ms / 1e3) for ms in (0, 2, 15, 50)}
+    check(abs(device_ms - alone_ms) <= 0.15 * alone_ms,
+          f"observability (i): execute device_ms {device_ms:.4f} within 15% of the kernel "
+          f"alone after the flush's {gap_s * 1e3:.1f} ms gap, {alone_ms:.4f}")
+    print("observability (i): spans of the cold {}-lane flush (ms): ".format(n)
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; execute device_ms {device_ms:.4f}, the kernel alone after the flush's "
+          f"{gap_s * 1e3:.3f} ms gap {alone_ms:.4f} (median of 7, {device_ms / alone_ms:.3f}x), "
+          f"back to back {kernel_ms:.4f} ({device_ms / kernel_ms:.3f}x); "
+          f"crypto.batch_verify_tally {parent_ms:.3f}; the flush's wall {wall_ms:.3f} [{card}]")
+    print("observability (i): the kernel alone on that plane after a host pause of "
+          + ", ".join(f"{ms} ms {v:.4f}" for ms, v in pauses.items())
+          + f" (medians of 7) [{card}]")
+    out.update(stages_ms=stages, device_ms=device_ms, kernel_ms=kernel_ms,
+               kernel_after_gap_ms=alone_ms, gap_ms=gap_s * 1e3, parent_ms=parent_ms,
+               wall_ms=wall_ms, kernel_after_pause_ms=pauses)
+
+    # (ii) the mixed set: one execute span a curve
+    mv = crypto_batch.new_batch_verifier()
+    for key, msg, sig in zip(m_keys, m_msgs, m_sigs):
+        mv.add(key, msg, sig, POWER)
+    sigcache.invalidate_all()
+    trace.drain()
+    reset_launches()
+    _ok, mask, _tally = mv.verify_tally()
+    out["mixed_launches"] = launches()
+    spans = trace.drain()
+    check(mask == m_expect.tolist(), "observability (ii): mask")
+    execs = {name: [sp for sp in spans if sp.name == name]
+             for name in ("ed25519.execute", "sr25519.execute", "secp256k1.execute")}
+    for name, lanes in (("sr25519.execute", N_SR), ("secp256k1.execute", N_K1)):
+        check(len(execs[name]) == 1 and execs[name][0].attrs.get("lanes") == lanes,
+              f"observability (ii): one {name} of {lanes} lanes "
+              f"({[sp.attrs for sp in execs[name]]})")
+    roots = [sp for sp in spans if sp.name == "crypto.batch_verify_tally"]
+    check(len(roots) == 1 and roots[0].attrs["lanes"] == len(m_sigs) - N_SR - N_K1,
+          "observability (ii): one ed25519 tree of the set's ed25519 lanes")
+    out["mixed_device_ms"] = {name: sps[0].attrs["device_ms"] for name, sps in execs.items()}
+    out["mixed_execute_ms"] = {name: sps[0].duration_s * 1e3 for name, sps in execs.items()}
+    print("observability (ii): the mixed set's execute spans (ms, device_ms in brackets): "
+          + ", ".join(f"{name} {out['mixed_execute_ms'][name]:.3f} "
+                      f"({out['mixed_device_ms'][name]:.4f})" for name in execs)
+          + f"; launches {out['mixed_launches']} [{card}]")
+
+    # (iii) the instrumentation's cost, in turns
+    on, off = [], []
+    reset_launches()
+    try:
+        for i in range(COST_RUNS):
+            for enabled in ((True, False) if i % 2 == 0 else (False, True)):
+                trace.set_enabled(enabled)
+                sigcache.invalidate_all()
+                t0 = time.perf_counter()
+                bv.verify_tally()
+                (on if enabled else off).append((time.perf_counter() - t0) * 1e3)
+    finally:
+        trace.set_enabled(True)
+    trace.drain()
+    out["cost_launches"] = launches()
+    check(out["cost_launches"]["ed25519_verify"] == 2 * COST_RUNS,
+          f"observability (iii): one launch a flush ({out['cost_launches']})")
+    on_ms, off_ms = statistics.median(on), statistics.median(off)
+    paired_ms = statistics.median(a - b for a, b in zip(on, off))
+    blocks = [statistics.median(on[i:i + COST_BLOCK]) - statistics.median(off[i:i + COST_BLOCK])
+              for i in range(0, COST_RUNS - COST_BLOCK + 1, COST_BLOCK)]
+    out.update(on_ms=on_ms, off_ms=off_ms, paired_ms=paired_ms,
+               block_diff_ms=(min(blocks), max(blocks)))
+    print(f"observability (iii): cold {n}-lane flush, median of {COST_RUNS} each in turns: "
+          f"tracing on {on_ms:.3f} ms, off {off_ms:.3f} ms ({on_ms - off_ms:+.3f} ms, "
+          f"{(on_ms / off_ms - 1) * 100:+.2f}%); median of the paired differences "
+          f"{paired_ms:+.3f} ms; on - off over medians of {COST_BLOCK} consecutive "
+          f"{min(blocks):+.3f} to {max(blocks):+.3f} ms; launches {out['cost_launches']} "
+          f"[{card}]")
+    check(not (on_ms > 1.05 * off_ms and on_ms - off_ms > 0.5),
+          f"observability (iii): tracing costs {on_ms - off_ms:.3f} ms over {off_ms:.3f}")
     return out
 
 
@@ -1001,6 +1159,12 @@ def http_get(url: str):
         return exc.code, exc.headers["Content-Type"], exc.read().decode()
 
 
+def metric_value(text: str, series: str) -> float:
+    """One series' value in a Prometheus exposition (0 when absent)."""
+    m = re.search(rf"^{re.escape(series)} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
 def sidecar_config_and_health(pks, msgs, sigs, expect, card) -> dict:
     """(e) a daemon configured by its home's config.toml alone, and (f) its
     health listener: /healthz, then /metrics against Stats after one
@@ -1066,6 +1230,37 @@ def sidecar_config_and_health(pks, msgs, sigs, expect, card) -> dict:
         print(f"sidecar (f): /healthz 200 healthy and warmed; after one {n}-lane request "
               f"/metrics dispatches_total{{curve=\"ed25519\"}} {m.group(1)} = Stats "
               f"{dispatches}, launches {launch_delta(before, after)} [{card}]")
+        # the device path's families against Stats: one batch a launch,
+        # the cache's counters and entries
+        batches = metric_value(text, 'tendermint_crypto_batch_size_count'
+                                     '{curve="ed25519",backend="gpu"}')
+        ed_launches = after["engine"]["launches"]["ed25519_verify"]
+        check(batches == ed_launches,
+              f"sidecar (f): /metrics ed25519 batches {batches} vs Stats launches {ed_launches}")
+        cache = {k: metric_value(text, f"tendermint_crypto_sigcache_{k}_total")
+                 for k in ("hits", "misses", "inserts", "evictions")}
+        cache["entries"] = metric_value(text, "tendermint_crypto_sigcache_entries")
+        stats_cache = {k: after["sigcache"][k] for k in cache}
+        check(cache == stats_cache,
+              f"sidecar (f): /metrics sigcache {cache} vs Stats {stats_cache}")
+        # one request with a valid v2 trace context, one with garbage
+        c = y.client("traced")
+        good = trace.TraceContext("00112233445566ff", 7, "chip-smoke").encode()
+        for ctx, lo in ((good, 0), (b"\x01garbage", 4)):
+            mask, _tallied, _ = c.verify(crypto_batch.ED25519, lanes[lo:lo + 4], tally=True,
+                                         deadline_s=60.0, trace_ctx=ctx)
+            check(mask == expect[lo:lo + 4].tolist(), "sidecar (f): traced requests' masks")
+        c.close()
+        text = http_get(base + "/metrics")[2]
+        contexts = {k: metric_value(text, f'tendermint_trace_context_{k}_total'
+                                          '{transport="sidecar"}') for k in ("rx", "invalid")}
+        check(contexts == {"rx": 1, "invalid": 1}, f"sidecar (f): trace contexts {contexts}")
+        out["health_batches"] = batches
+        out["health_sigcache"] = cache
+        print(f"sidecar (f): /metrics crypto_batch_size_count{{curve=\"ed25519\","
+              f"backend=\"gpu\"}} {batches:g} = Stats ed25519 launches {ed_launches}; "
+              f"sigcache {cache} = Stats; trace_context rx {contexts['rx']:g}, invalid "
+              f"{contexts['invalid']:g} after one valid and one garbage context [{card}]")
         y.terminate()
     except Exception:
         for d in daemons:
@@ -1458,7 +1653,15 @@ def main() -> int:
         entry["mixed_e2e_ms"] = mixed_ms
         entry["mixed_e2e_ms_cache_off"] = mixed_off_ms
 
-    # 10b. the lane split across the mesh
+    # 10b. the device path's spans, read from the real flush
+    obs = observability_phase(keys, msgs, sigs, expect, m_keys, m_msgs, m_sigs, m_expect,
+                              entries[0]["ms"], card)
+    entries[0]["observability"] = obs
+    for entry, name in zip(entries, ("ed25519_verify", "sr25519_verify", "k1_verify")):
+        entry["obs_launches"] = (obs["launches"][name] + obs["mixed_launches"][name]
+                                 + obs["cost_launches"][name])
+
+    # 10c. the lane split across the mesh
     mixed = {kind: args_of(kind) + (m_expect[lanes_of[kind]],) for kind in CURVE_ORDER}
     mesh = mesh_phase(pks, msgs, sigs, expect, mixed, card)
     for entry, key in zip(entries, ("launches", "sr25519_launches", "secp256k1_launches")):

@@ -78,6 +78,18 @@ def test_config_and_metrics_are_covered():
     assert {"tmtpu_torch.config", "tmtpu_torch.sidecar.metrics"} <= set(_module_names())
 
 
+LIBS = ("tmtpu_torch.libs.trace", "tmtpu_torch.libs.metrics", "tmtpu_torch.libs.timeline")
+
+
+def test_observability_libraries_are_covered_and_stand_alone():
+    """The port's copies of the reference's span ring, metric registry and
+    timeline are among the modules checked above, and load behind a hook
+    that refuses ``jax``, ``tmtpu`` and ``torch``: they are copies, not
+    bindings, and need nothing of the device."""
+    assert set(LIBS) <= set(_module_names())
+    _import_behind_hook(LIBS, ("jax", "jaxlib", "tmtpu", "torch"))
+
+
 # --- the device tools, tools/gpu_*.py ---------------------------------------------
 
 _GPU_TOOLS = sorted(f for f in os.listdir(os.path.join(ROOT, "tools"))
@@ -86,7 +98,7 @@ _GPU_TOOLS = sorted(f for f in os.listdir(os.path.join(ROOT, "tools"))
 NODE_SIDE = ("gpu_common.py", "gpu_light_bench.py", "gpu_live_round.py",
              "gpu_localnet_ab.py", "gpu_localnet_mesh_ab.py")
 # port-side: import tmtpu_torch, torch and numpy, as bench_torch.py does
-PORT_SIDE = ("gpu_breakdown.py", "gpu_curve_bench.py", "gpu_port_common.py")
+PORT_SIDE = ("gpu_breakdown.py", "gpu_curve_bench.py", "gpu_flush_ab.py", "gpu_port_common.py")
 
 
 def _import_behind_hook(names, blocked):

@@ -186,3 +186,68 @@ def test_renderer_escapes_and_formats():
     assert "tendermint_sidecar_server_queue_lanes 2.5" in text
     assert "tendermint_sidecar_server_overloads_total 0" in text
     assert text.endswith("\n")
+
+
+def test_metrics_serves_the_device_path_families_sorted(tmp_path):
+    """``/metrics`` renders the daemon's families and the process-wide
+    device-path registry together, sorted by name as the reference renders
+    its one registry; the daemon's block is byte for byte its own renderer's
+    output, and the batch count follows the dispatches."""
+    from tmtpu_torch.libs import metrics as lib_metrics
+
+    with _daemon("port", tmp_path) as (srv, base):
+        before = _get(base + "/metrics")[2]
+        with contextlib.closing(SidecarClient(srv.addr, client_id="m",
+                                              request_deadline_s=DEADLINE_S)) as c:
+            c.verify("ed25519", _lanes(4, bad={2}, tag=b"m1"), tally=True)
+        text = _get(base + "/metrics")[2]
+        own = srv.metrics.render()
+    families = [line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")]
+    assert families == sorted(families)
+    assert set(families) == {name for reg in (lib_metrics.DEFAULT, srv.metrics.registry)
+                             for name, _fam in reg.items()}
+    assert own in text
+
+    def count(body, name):
+        m = re.search(rf"^{name} (\S+)$", body, re.M)
+        return float(m.group(1)) if m else 0.0
+
+    batches = 'tendermint_crypto_batch_size_count{curve="ed25519",backend="cpu"}'
+    dispatches = FAMILY + 'dispatches_total{curve="ed25519"}'
+    assert count(text, re.escape(dispatches)) == 1
+    assert count(text, re.escape(batches)) - count(before, re.escape(batches)) == 1
+
+
+def test_trace_context_counters_match_the_reference(tmp_path):
+    """One request with a valid v2 trace context and one with garbage:
+    each daemon's ``/metrics`` counts one ``trace_context_rx_total`` and
+    one ``trace_context_invalid_total`` (``transport="sidecar"``)."""
+    from tmtpu_torch.libs import trace
+    from tmtpu_torch.sidecar import protocol as proto
+
+    good = trace.TraceContext("0011223344556677", 3, "node").encode()
+    got = {}
+    for kind in ("ref", "port"):
+        with _daemon(kind, tmp_path) as (srv, base):
+            before = _get(base + "/metrics")[2]
+            for rid, ctx in ((1, good), (2, b"\x01garbage")):
+                cols = [list(c) for c in zip(*_lanes(1, tag=b"ctx%d" % rid))]
+                s = _connect_raw(srv.addr)
+                s.settimeout(DEADLINE_S)
+                try:
+                    proto.write_frame(s.makefile("wb"), proto.Hello(version=2, client_id="t"))
+                    rd = proto.FrameReader(s.makefile("rb"))
+                    rd.read_msg()
+                    s.sendall(proto.encode_verify_frame(rid, "ed25519", False, 0, *cols,
+                                                        trace_ctx=ctx))
+                    assert rd.read_msg().status == proto.STATUS_OK
+                finally:
+                    s.close()
+            after = _get(base + "/metrics")[2]
+        got[kind] = {
+            name: sum(float(v) for v in re.findall(
+                rf'^tendermint_trace_{name}_total{{transport="sidecar"}} (\S+)$', after, re.M))
+            - sum(float(v) for v in re.findall(
+                rf'^tendermint_trace_{name}_total{{transport="sidecar"}} (\S+)$', before, re.M))
+            for name in ("context_rx", "context_invalid")}
+    assert got["port"] == got["ref"] == {"context_rx": 1.0, "context_invalid": 1.0}

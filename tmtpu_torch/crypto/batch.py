@@ -20,20 +20,29 @@ secp256k1 to ``k1_verify.batch_verify_k1``; or, where
 after the resolve and two or more devices), split across the mesh by
 ``mesh_dispatch.batch_verify_tally_mesh`` / ``batch_verify_mesh``, the
 reference's ``_mesh_first``. There is no breaker, no fallback from the mesh
-to one device, no serial CPU fallback, no metrics and no timeline events;
-groups below the reference's serial threshold go to the device too, which
-gives the same mask.
+to one device and no serial CPU fallback; groups below the reference's
+serial threshold go to the device too, which gives the same mask.
+
+Observability, as the reference records it: the resolve counts dedup
+lanes (``crypto_sigcache_dedup_lanes_total``; the cache counts its own
+hits, misses, inserts and evictions) and records ``record_sigcache`` for a
+flush with hits or dedup; each dispatch records its span tree and one
+``observe_crypto_batch``; ``_verify_pending`` ends with ``record_flush``
+(``backend`` the device label, ``gpu`` or ``cpu``); a verifier's device,
+once resolved, sets ``crypto_tpu_backend_up``.
 """
 
 from __future__ import annotations
 
 import itertools
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from tmtpu_torch import device as device_mod
 from tmtpu_torch.crypto import sigcache
+from tmtpu_torch.libs import metrics, timeline
 
 ED25519 = "ed25519"
 SR25519 = "sr25519"
@@ -144,8 +153,13 @@ class BatchVerifier:
             cache.add_many(keys[pending[ok[pending]]])
             mask[~hit] = ok[rep[~hit]]
         hits = int(hit.sum())
-        self.cache_stats = {"lanes": n, "hits": hits, "dedup": n - hits - len(pending),
+        dedup = n - hits - len(pending)
+        if dedup:
+            metrics.crypto_sigcache_dedup_lanes.inc(dedup)
+        self.cache_stats = {"lanes": n, "hits": hits, "dedup": dedup,
                             "dispatched": len(pending)}
+        if n and (hits or dedup):
+            timeline.record_sigcache(lanes=n, hits=hits, dedup=dedup, dispatched=len(pending))
         mask = mask.tolist()
         return all(mask), mask, tallied
 
@@ -169,7 +183,12 @@ class TorchBatchVerifier(BatchVerifier):
 
     def __init__(self, device=None):
         super().__init__()
-        self.device = device_mod.resolve(device)
+        try:
+            self.device = device_mod.resolve(device)
+        except RuntimeError:
+            metrics.crypto_tpu_backend_up.set(0)
+            raise
+        metrics.crypto_tpu_backend_up.set(1)
         self.bit_words: Optional[np.ndarray] = None
         self.mesh_dispatches = 0
 
@@ -181,6 +200,7 @@ class TorchBatchVerifier(BatchVerifier):
         from tmtpu_torch.gpu import k1_verify, mesh_dispatch, sharding, sr_verify
         from tmtpu_torch.gpu import verify as tv
 
+        t0 = time.perf_counter()
         kinds = set(lanes.types)
         for kind in kinds:
             if kind not in PUB_KEY_SIZES:
@@ -214,6 +234,8 @@ class TorchBatchVerifier(BatchVerifier):
                     m = verify_fn(sub.pks, sub.msgs, sub.sigs, device=self.device)
                 tallied += sum(itertools.compress(sub.powers, m.tolist()))
             mask[idx] = m
+        timeline.record_flush(backend=metrics.backend_label(self.device), lanes=len(lanes),
+                              ok=int(mask.sum()), seconds=round(time.perf_counter() - t0, 6))
         return mask.tolist(), tallied
 
     def verify_tally(self) -> Tuple[bool, List[bool], int]:

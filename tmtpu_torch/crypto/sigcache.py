@@ -20,7 +20,9 @@ verified before costs no lane.
 - The entries live in C (``native.Store``): the key's first byte picks
   one of ``shards`` LRU sets, each behind its own mutex, so threads that
   flush at once do not serialise on one lock. ``stats()`` keeps lifetime
-  counters of hits, misses, inserts and evictions.
+  counters of hits, misses, inserts and evictions, and the same counts,
+  with the resident entries, feed the reference's ``crypto_sigcache_*``
+  families (``libs/metrics.py``).
 - A flush is resolved in one C call (``resolve``): its keys computed on
   threads, looked up in order and its repeated misses folded onto their
   first lane, with no Python loop over the keys; ``contains`` and ``add`` are that
@@ -37,6 +39,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from tmtpu_torch import native
+from tmtpu_torch.libs import metrics
 
 DEFAULT_MAX_ENTRIES = 131072
 DEFAULT_SHARDS = 16
@@ -78,11 +81,19 @@ class SigCache:
             return self._store
 
     def _count(self, hits=0, misses=0, inserts=0, evictions=0) -> None:
+        """Add to the lifetime counters and to the reference's
+        ``crypto_sigcache_*`` families."""
         with self._stats_lock:
             self._hits += hits
             self._misses += misses
             self._inserts += inserts
             self._evictions += evictions
+        for family, n in ((metrics.crypto_sigcache_hits, hits),
+                          (metrics.crypto_sigcache_misses, misses),
+                          (metrics.crypto_sigcache_inserts, inserts),
+                          (metrics.crypto_sigcache_evictions, evictions)):
+            if n:
+                family.inc(n)
 
     def contains_many(self, keys) -> List[bool]:
         """Whether each key (32 bytes, or a row of [B, 32] uint8) was added
@@ -102,6 +113,7 @@ class SigCache:
             return
         inserted, evicted = self._entries().add(keys)
         self._count(inserts=inserted, evictions=evicted)
+        metrics.crypto_sigcache_entries.set(self.size())
 
     def contains(self, key: bytes) -> bool:
         return self.contains_many([key])[0]
@@ -142,6 +154,7 @@ class SigCache:
         store = self._store
         if store is not None:
             store.clear()
+        metrics.crypto_sigcache_entries.set(0)
 
     def resize(self, max_entries: int, shards: Optional[int] = None) -> None:
         """New capacity. A new shard count rebuilds the shards (dropping
@@ -153,7 +166,10 @@ class SigCache:
         self._per_shard = max(1, self._max_entries // self._shards)
         store = self._store
         if store is not None:
-            self._count(evictions=store.resize(self._per_shard))
+            evicted = store.resize(self._per_shard)
+            if evicted:
+                self._count(evictions=evicted)
+                metrics.crypto_sigcache_entries.set(self.size())
 
     def size(self) -> int:
         store = self._store

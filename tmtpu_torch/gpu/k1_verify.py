@@ -27,6 +27,7 @@ could run in TF32); its ``lax.scan`` and ``fori_loop`` are Python loops.
 from __future__ import annotations
 
 import hashlib
+import time
 
 import numpy as np
 import torch
@@ -34,6 +35,8 @@ import torch
 from tmtpu_torch import device as device_mod
 from tmtpu_torch.crypto import secp256k1_ref as k1ref
 from tmtpu_torch.gpu import fe_k1 as fe
+from tmtpu_torch.gpu import spans
+from tmtpu_torch.libs import metrics, trace
 from tmtpu_torch.gpu.verify import lt_le
 
 P = fe.P_INT
@@ -331,8 +334,19 @@ def batch_verify_k1(pks, msgs, sigs, device=None) -> np.ndarray:
     from tmtpu_torch.gpu import k1_kernel
 
     dev = device_mod.resolve(device)
-    if len(sigs) == 0:
+    B = len(sigs)
+    if B == 0:
         return np.zeros(0, dtype=bool)
-    packed, host_ok = prepare_k1_batch_packed(pks, msgs, sigs)
-    mask = k1_kernel.verify_packed(torch.from_numpy(packed).to(dev))
-    return mask.cpu().numpy() & host_ok
+    impl = metrics.impl_label(dev)
+    t0 = time.perf_counter()
+    with trace.span("secp256k1.prepare", lanes=B):
+        packed, host_ok = prepare_k1_batch_packed(pks, msgs, sigs)
+    # as in the reference, execute holds the copies as well as the kernel
+    with trace.span("secp256k1.execute", impl=impl, lanes=B) as ex:
+        plane = torch.from_numpy(packed).to(dev)
+        with spans.device_time(ex, dev):
+            mask = k1_kernel.verify_packed(plane)
+        mask = mask.cpu().numpy()
+    metrics.observe_crypto_batch("secp256k1", metrics.backend_label(dev), impl, B, 0,
+                                 time.perf_counter() - t0)
+    return mask & host_ok

@@ -22,6 +22,14 @@ CPU, so a test sets ``TMTPU_MESH_DEVICES=4`` as the reference's tests do. The co
 (``dispatch_count``, ``snapshot``) are the sidecar daemon's Stats. Each
 shard holds its actual lanes: the reference's pad to 32 x n lanes is gone,
 and ``snapshot()["last"]["shard_lanes"]`` lists the shards' sizes.
+
+Each dispatch records the reference's span (``crypto.mesh_verify_tally``
+or ``crypto.mesh_verify``, its device time from an event pair on the first
+device's stream, which the join makes wait on every shard), the mesh
+families (``crypto_mesh_*``; a shard's lanes are the first shard's, the
+pad ratio 1; ``crypto_mesh_psum_seconds`` the host readback of the joined
+limb sums once the join's event has passed), one ``observe_crypto_batch``
+with ``impl="mesh"`` and ``record_flush(backend="mesh")``.
 """
 
 from __future__ import annotations
@@ -36,9 +44,10 @@ import torch
 
 from tmtpu_torch import device as device_mod
 from tmtpu_torch.gpu import k1_verify as kv
-from tmtpu_torch.gpu import sharding
+from tmtpu_torch.gpu import sharding, spans
 from tmtpu_torch.gpu import sr_verify as sv
 from tmtpu_torch.gpu import verify as tv
+from tmtpu_torch.libs import metrics, timeline, trace
 
 ED25519 = "ed25519"
 SR25519 = "sr25519"
@@ -117,14 +126,19 @@ def route(curve: str, lanes: int, device=None) -> bool:
 
 
 def _mesh(device, mesh) -> tuple:
-    mesh = mesh_for(device) if mesh is None else tuple(mesh)
+    mesh = mesh_for(device) if mesh is None else tuple(device_mod.resolve(d) for d in mesh)
     if len(mesh) < 2:
         raise MeshUnavailable(f"a mesh needs two or more devices, have {len(mesh)} "
                               f"(mesh_devices={mesh_devices()})")
     return mesh
 
 
-def _note_dispatch(curve: str, lanes: int, n: int, seconds: float) -> None:
+def _note_dispatch(curve: str, lanes: int, n: int, backend: str, psum_s: float,
+                   seconds: float) -> None:
+    """Count one dispatch in the Stats, the mesh families, the crypto
+    families (``impl="mesh"``) and the timeline (``backend="mesh"``). With
+    no pad lanes, a shard's lanes are the first (largest) shard's and the
+    pad ratio is 1."""
     sizes = [hi - lo for lo, hi in sharding.shard_bounds(lanes, n)]
     sizes += [0] * (n - len(sizes))
     with _lock:
@@ -134,6 +148,14 @@ def _note_dispatch(curve: str, lanes: int, n: int, seconds: float) -> None:
             _state["occupancy"][d] = _state["occupancy"].get(d, 0) + size
         _state["last"] = {"seq": _state["dispatches"], "curve": curve, "lanes": lanes,
                           "devices": n, "shard_lanes": sizes, "seconds": round(seconds, 6)}
+    metrics.crypto_mesh_devices.set(n)
+    metrics.crypto_mesh_dispatches_total.inc(curve=curve)
+    metrics.crypto_mesh_shard_lanes.observe(sizes[0], curve=curve)
+    metrics.crypto_mesh_pad_ratio.observe(1.0, curve=curve)
+    metrics.crypto_mesh_psum_seconds.observe(psum_s)
+    timeline.record_flush(backend="mesh", curve=curve, lanes=lanes, shards=n,
+                          shard_lanes=sizes, seconds=round(seconds, 6))
+    metrics.observe_crypto_batch(curve, backend, "mesh", lanes, 0, seconds)
 
 
 def dispatch_count() -> int:
@@ -165,11 +187,23 @@ def batch_verify_tally_mesh(pks, msgs, sigs, powers, device=None,
     if b == 0:
         return np.zeros(0, dtype=bool), 0
     mesh = _mesh(device, mesh)
+    n = len(mesh)
     t0 = time.perf_counter()
-    packed, host_ok = tv.prepare_batch_packed(pks, msgs, sigs)
-    out = sharding.sharded_verify_tally(mesh)(packed, sharding.power_limbs(powers), host_ok)
-    mask, tallied = sharding.readback(*out)
-    _note_dispatch(ED25519, b, len(mesh), time.perf_counter() - t0)
+    with trace.span("crypto.mesh_verify_tally", curve=ED25519, lanes=b, shards=n) as sp:
+        packed, host_ok = tv.prepare_batch_packed(pks, msgs, sigs)
+        sp.set(impl=metrics.impl_label(mesh[0]))
+        # the join's event on the first device ends the device time: it
+        # waits on every shard's stream, with no device-wide sync
+        with spans.device_time(sp, mesh[0]):
+            mask, sums = sharding.sharded_verify_tally(mesh)(
+                packed, sharding.power_limbs(powers), host_ok)
+        # the reference's psum readback: the joined limb sums to the host
+        t_mask = time.perf_counter()
+        tallied = sharding.combine_limbs(sums.cpu().tolist())
+        psum_s = time.perf_counter() - t_mask
+        mask = mask.cpu().numpy()
+    _note_dispatch(ED25519, b, n, metrics.backend_label(mesh[0]), psum_s,
+                   time.perf_counter() - t0)
     return mask, tallied
 
 
@@ -190,9 +224,14 @@ def batch_verify_mesh(curve: str, pks, msgs, sigs, device=None, mesh=None) -> np
     if b == 0:
         return np.zeros(0, dtype=bool)
     mesh = _mesh(device, mesh)
+    n = len(mesh)
     prep, build = _MASK_PATHS[curve]
     t0 = time.perf_counter()
-    packed, host_ok = prep(pks, msgs, sigs)
-    mask = build(mesh)(packed).cpu().numpy() & host_ok
-    _note_dispatch(curve, b, len(mesh), time.perf_counter() - t0)
+    with trace.span("crypto.mesh_verify", curve=curve, lanes=b, shards=n) as sp:
+        packed, host_ok = prep(pks, msgs, sigs)
+        with spans.device_time(sp, mesh[0]):
+            mask = build(mesh)(packed)
+        mask = mask.cpu().numpy() & host_ok
+    _note_dispatch(curve, b, n, metrics.backend_label(mesh[0]), 0.0,
+                   time.perf_counter() - t0)
     return mask

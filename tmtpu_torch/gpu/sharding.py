@@ -30,12 +30,15 @@ the plain versions, the counterpart of the reference's virtual CPU mesh.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from tmtpu_torch import device as device_mod
-from tmtpu_torch.gpu import k1_kernel, kernel
+from tmtpu_torch.gpu import k1_kernel, kernel, spans
 from tmtpu_torch.gpu import verify as tv
+from tmtpu_torch.libs import metrics, trace
 
 
 def pack_bitarray(mask: torch.Tensor) -> torch.Tensor:
@@ -122,12 +125,29 @@ def batch_verify_tally(pks, msgs, sigs, powers, device=None):
     """Host-facing fused entry: bytes -> (mask bool [B] ndarray, summed
     voting power of valid lanes as an exact Python int). Host prep, one
     host-to-device copy of the packed plane (plus the powers and the host
-    verdicts), one kernel launch, the tally, one readback."""
+    verdicts), one kernel launch, the tally, one readback; each stage under
+    the reference's span, and one ``observe_crypto_batch``."""
     dev = device_mod.resolve(device)
-    if len(sigs) == 0:
+    B = len(sigs)
+    if B == 0:
         return np.zeros(0, dtype=bool), 0
-    packed, host_ok = tv.prepare_batch_packed(pks, msgs, sigs)
-    return readback(*verify_tally_step_kernel(*upload(packed, powers, host_ok, dev)))
+    impl = metrics.impl_label(dev)
+    t0 = time.perf_counter()
+    with trace.span("crypto.batch_verify_tally", curve="ed25519", lanes=B) as sp:
+        with trace.span("ed25519.prepare", lanes=B):
+            packed, host_ok = tv.prepare_batch_packed(pks, msgs, sigs)
+        sp.set(impl=impl)
+        # no ed25519.pad: no lane is padded, and the power limbs, the rest
+        # of the reference's pad stage, are built inside upload
+        with trace.span("ed25519.device_put"):
+            args = upload(packed, powers, host_ok, dev)
+        with trace.span("ed25519.execute", impl=impl) as ex, spans.device_time(ex, dev):
+            out = verify_tally_step_kernel(*args)
+        with trace.span("ed25519.readback"):
+            result = readback(*out)
+    metrics.observe_crypto_batch("ed25519", metrics.backend_label(dev), impl, B, 0,
+                                 time.perf_counter() - t0)
+    return result
 
 
 def example_batch(lanes: int, device=None) -> torch.Tensor:

@@ -23,6 +23,8 @@ Split of labour:
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -30,7 +32,8 @@ from tmtpu_torch import device as device_mod
 from tmtpu_torch import native
 from tmtpu_torch.crypto import ed25519_ref as ref
 from tmtpu_torch.crypto.sr25519 import challenge_k
-from tmtpu_torch.gpu import curve, fe
+from tmtpu_torch.gpu import curve, fe, spans
+from tmtpu_torch.libs import metrics, trace
 from tmtpu_torch.gpu.verify import (base_table, digits_msb_device, host_lanes, lt_le,
                                     split_packed)
 
@@ -194,8 +197,19 @@ def batch_verify_sr(pks, msgs, sigs, device=None) -> np.ndarray:
     from tmtpu_torch.gpu import kernel
 
     dev = device_mod.resolve(device)
-    if len(sigs) == 0:
+    B = len(sigs)
+    if B == 0:
         return np.zeros(0, dtype=bool)
-    packed, host_ok = prepare_sr_batch_packed(pks, msgs, sigs)
-    mask = kernel.sr_verify_packed(torch.from_numpy(packed).to(dev))
-    return mask.cpu().numpy() & host_ok
+    impl = metrics.impl_label(dev)
+    t0 = time.perf_counter()
+    with trace.span("sr25519.prepare", lanes=B):
+        packed, host_ok = prepare_sr_batch_packed(pks, msgs, sigs)
+    # as in the reference, execute holds the copies as well as the kernel
+    with trace.span("sr25519.execute", impl=impl, lanes=B) as ex:
+        plane = torch.from_numpy(packed).to(dev)
+        with spans.device_time(ex, dev):
+            mask = kernel.sr_verify_packed(plane)
+        mask = mask.cpu().numpy()
+    metrics.observe_crypto_batch("sr25519", metrics.backend_label(dev), impl, B, 0,
+                                 time.perf_counter() - t0)
+    return mask & host_ok

@@ -19,6 +19,7 @@ Split of labour:
 from __future__ import annotations
 
 import hashlib
+import time
 
 import numpy as np
 import torch
@@ -26,7 +27,8 @@ import torch
 from tmtpu_torch import device as device_mod
 from tmtpu_torch import native
 from tmtpu_torch.crypto import ed25519_ref as ref
-from tmtpu_torch.gpu import curve, fe
+from tmtpu_torch.gpu import curve, fe, spans
+from tmtpu_torch.libs import metrics, trace
 
 L = ref.L
 D_LIMBS = fe.limbs_of_int(ref.D)
@@ -219,6 +221,19 @@ def batch_verify(pks, msgs, sigs, device=None) -> np.ndarray:
     B = len(sigs)
     if B == 0:
         return np.zeros(0, dtype=bool)
-    packed, host_ok = prepare_batch_packed(pks, msgs, sigs)
-    mask = kernel.verify_packed(torch.from_numpy(packed).to(dev))
-    return mask.cpu().numpy() & host_ok
+    impl = metrics.impl_label(dev)
+    t0 = time.perf_counter()
+    with trace.span("crypto.batch_verify", curve="ed25519", lanes=B) as sp:
+        with trace.span("ed25519.prepare", lanes=B):
+            packed, host_ok = prepare_batch_packed(pks, msgs, sigs)
+        sp.set(impl=impl)
+        # no ed25519.pad: no lane is padded
+        with trace.span("ed25519.device_put"):
+            plane = torch.from_numpy(packed).to(dev)
+        with trace.span("ed25519.execute", impl=impl) as ex, spans.device_time(ex, dev):
+            mask = kernel.verify_packed(plane)
+        with trace.span("ed25519.readback"):
+            mask = mask.cpu().numpy()
+    metrics.observe_crypto_batch("ed25519", metrics.backend_label(dev), impl, B, 0,
+                                 time.perf_counter() - t0)
+    return mask & host_ok

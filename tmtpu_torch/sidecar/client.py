@@ -113,15 +113,19 @@ class SidecarClient:
 
     def verify(self, curve: str, lanes: List[Tuple[bytes, bytes, bytes, int]],
                tally: bool = False,
-               deadline_s: Optional[float] = None) -> Tuple[List[bool], int, Dict]:
-        """Ship (pubkey bytes, msg, sig, power) lanes to the daemon; returns
-        (mask, tallied, dispatch info). Raises ``SidecarError`` on any
-        status other than OK."""
+               deadline_s: Optional[float] = None,
+               trace_ctx: bytes = b"") -> Tuple[List[bool], int, Dict]:
+        """Ship (pubkey bytes, msg, sig, power) lanes to the daemon, with a
+        v2 trace context when ``trace_ctx`` is given (the encoded
+        ``libs.trace.TraceContext``, sent as it is); returns (mask,
+        tallied, dispatch info). Raises ``SidecarError`` on any status
+        other than OK."""
         deadline_s = deadline_s or self._request_deadline_s
         rid = next(self._seq)
         pks, msgs, sigs, powers = (list(col) for col in zip(*lanes)) if lanes else ([],) * 4
         reply = self._roundtrip(proto.encode_verify_frame(
-            rid, curve, tally, int(deadline_s * 1000), pks, msgs, sigs, powers), deadline_s)
+            rid, curve, tally, int(deadline_s * 1000), pks, msgs, sigs, powers,
+            trace_ctx=trace_ctx), deadline_s)
         if not isinstance(reply, proto.VerifyResponse) or reply.request_id != rid:
             raise SidecarError(f"unexpected reply {reply!r}")
         if reply.status != proto.STATUS_OK:

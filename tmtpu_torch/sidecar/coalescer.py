@@ -29,8 +29,11 @@ distinct clients, traced requests).
   the count.
 
 The reference's ``sidecar_server_*`` metrics are kept in ``metrics``
-(``sidecar/metrics.py``); its timeline records and trace marks are not
-ported.
+(``sidecar/metrics.py``). Each joint dispatch also records the
+reference's ``record_sidecar`` timeline event (``role="server"``) and one
+``sidecar.dispatch`` trace mark per distinct trace id among its requests'
+decoded contexts; the scheduler's ``target_lanes`` sets
+``crypto_flush_target_lanes``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from tmtpu_torch.libs import metrics as lib_metrics
+from tmtpu_torch.libs import timeline, trace
 from tmtpu_torch.sidecar.metrics import SidecarMetrics
 
 # the verify engine: (curve, pks, msgs, sigs, powers, tally) -> (mask,
@@ -109,6 +114,13 @@ class AdaptiveFlushScheduler:
             return self.min_lanes
         return int(max(self.min_lanes, min(self.max_lanes, self._rate * self._rtt)))
 
+    def target_lanes(self) -> int:
+        """The target batch, also set on ``crypto_flush_target_lanes``."""
+        with self._lock:
+            t = self._target_locked()
+        lib_metrics.crypto_flush_target_lanes.set(t)
+        return t
+
     def gather_wait_s(self, pending: int) -> float:
         """Seconds the dispatcher may linger to fill ``pending`` toward the
         target: 0.0 without samples, with the target met, or disabled;
@@ -131,10 +143,11 @@ class PendingRequest:
     __slots__ = ("client_id", "curve", "pks", "msgs", "sigs", "powers", "tally",
                  "deadline", "enqueued_at", "done", "mask", "tallied", "error",
                  "failure", "dispatch_id", "dispatch_lanes", "dispatch_clients",
-                 "traced", "dispatch_traces")
+                 "trace_ctx", "dispatch_traces")
 
     def __init__(self, client_id: str, curve: str, pks, msgs, sigs, powers,
-                 tally: bool, deadline: Optional[float], traced: bool = False):
+                 tally: bool, deadline: Optional[float],
+                 trace_ctx: Optional[trace.TraceContext] = None):
         self.client_id = client_id
         self.curve = curve
         self.pks, self.msgs, self.sigs, self.powers = pks, msgs, sigs, powers
@@ -149,9 +162,9 @@ class PendingRequest:
         self.dispatch_id = 0
         self.dispatch_lanes = 0
         self.dispatch_clients = 0
-        # whether the request carried a valid trace context, and after
+        # the request's decoded trace context (None: untraced), and after
         # dispatch how many traced requests shared it
-        self.traced = traced
+        self.trace_ctx = trace_ctx
         self.dispatch_traces = 0
 
     def __len__(self) -> int:
@@ -220,14 +233,15 @@ class Coalescer:
 
     def submit(self, client_id: str, curve: str, pks, msgs, sigs, powers,
                tally: bool, deadline_s: Optional[float] = None,
-               traced: bool = False) -> PendingRequest:
+               trace_ctx: Optional[trace.TraceContext] = None) -> PendingRequest:
         """Enqueue one request's columns; returns a waitable
         ``PendingRequest``. Raises ``Overloaded`` when the queues are full
-        (never queues part of a request)."""
+        (never queues part of a request). ``trace_ctx`` tags the joint
+        dispatch the request rides."""
         req = PendingRequest(
             client_id, curve, pks, msgs, sigs, powers, tally,
             None if deadline_s is None else time.monotonic() + deadline_s,
-            traced=traced)
+            trace_ctx=trace_ctx)
         n = len(req)
         with self._cond:
             if not self._running:
@@ -377,19 +391,35 @@ class Coalescer:
             # wedge clients: they get an error verdict, never a mask
             self._engine_failed(live, f"verify engine failed: {exc}")
             return
-        self.scheduler.note_dispatch(len(sigs), time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.scheduler.note_dispatch(len(sigs), dt)
         m = self.metrics
         m.dispatches.inc(curve=curve)
         m.dispatch_lanes.observe(len(sigs), curve=curve)
         m.dispatch_clients.observe(clients)
+        shards = 0
         if meshed:
             from tmtpu_torch.gpu import mesh_dispatch
 
+            snap = mesh_dispatch.snapshot()
+            shards = snap["devices"]
             m.mesh_dispatches.inc(meshed, curve=curve)
-            for dev, lanes in mesh_dispatch.snapshot()["occupancy_lanes"].items():
+            for dev, lanes in snap["occupancy_lanes"].items():
                 m.mesh_occupancy.set(lanes, device=dev)
         with self._lock:
             self._mesh_dispatches += meshed
+        timeline.record_sidecar(role="server", curve=curve, lanes=len(sigs), clients=clients,
+                                requests=len(live), mesh_shards=shards, seconds=round(dt, 6))
+        # one mark per distinct trace the dispatch served: a fleet join sees
+        # which heights shared this device flush
+        traced = [req.trace_ctx for req in live if req.trace_ctx is not None]
+        seen = set()
+        for ctx in traced:
+            if ctx.trace_id in seen:
+                continue
+            seen.add(ctx.trace_id)
+            trace.mark("sidecar.dispatch", ctx=ctx, dispatch_id=dispatch_id, lanes=len(sigs),
+                       clients=clients, requests=len(live), seconds=round(dt, 6))
         if len(mask) != len(sigs):
             self._engine_failed(live, f"verify engine returned {len(mask)} verdicts "
                                       f"for {len(sigs)} lanes")
@@ -399,7 +429,6 @@ class Coalescer:
             self._dispatches_by_curve[curve] = self._dispatches_by_curve.get(curve, 0) + 1
             self._dispatched_requests += len(live)
             self._dispatched_lanes += len(sigs)
-        traced = sum(req.traced for req in live)
         off = 0
         for req in live:
             n = len(req)
@@ -411,6 +440,6 @@ class Coalescer:
             req.dispatch_id = dispatch_id
             req.dispatch_lanes = len(sigs)
             req.dispatch_clients = clients
-            req.dispatch_traces = traced
+            req.dispatch_traces = len(traced)
             off += n
             req.done.set()

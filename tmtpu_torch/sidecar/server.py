@@ -15,15 +15,20 @@ failure answers every request of its dispatch with the reference's
 status (``STATUS_BACKEND_DOWN``), and the node's own client decides what
 to do. As in the reference, one lane whose key has the wrong size fails
 its whole dispatch that way (the reference's engine builds a key object
-from every lane, and the constructor raises). The reference's trace
-spans are not ported; a v2 trace context is advisory, never rejected, and
-counted in ``dispatch_traces`` when it passes the reference's strict
-decode.
+from every lane, and the constructor raises). A v2 trace context is
+advisory, never rejected: it is decoded strictly (``trace.adopt``),
+counted in ``trace_context_rx_total`` or ``trace_context_invalid_total``
+(``transport="sidecar"``), and a valid one rides its request to the
+coalescer, which counts it in ``dispatch_traces`` and marks the dispatch
+with it.
 
 Health (``health_laddr``, ``host:port``): an HTTP listener serves
 ``/healthz`` (200 or 503, ``{"healthy": ..., **snapshot()}`` as JSON) and
-``/metrics`` (the reference's ``sidecar_server_*`` families,
-``sidecar/metrics.py``), 404 elsewhere, as the reference's does. With no
+``/metrics`` (the daemon's ``sidecar_server_*`` families,
+``sidecar/metrics.py``, and the process-wide device-path families,
+``libs/metrics.py``, sorted by name as the reference renders its one
+registry), 404 elsewhere, as the reference's does. As in the reference,
+no endpoint drains the span ring. With no
 breaker to read, the port's signal is its engine: unhealthy once
 ``failure_threshold`` dispatches in a row have failed (the reference's
 ``[crypto] breaker_failure_threshold``, after which its device breaker
@@ -48,6 +53,8 @@ from tmtpu_torch import device as device_mod
 from tmtpu_torch.crypto import batch as crypto_batch
 from tmtpu_torch.crypto import sigcache
 from tmtpu_torch.gpu import mesh_dispatch
+from tmtpu_torch.libs import metrics as lib_metrics
+from tmtpu_torch.libs import trace
 from tmtpu_torch.sidecar import protocol as proto
 from tmtpu_torch.sidecar.coalescer import Coalescer, Overloaded
 from tmtpu_torch.sidecar.metrics import SidecarMetrics
@@ -60,27 +67,11 @@ _FAILURE_STATUS = {
 
 WARM_LANES = 4
 
-# the trace context's wire form (tmtpu/libs/trace.py): version(1) ||
-# trace_id(8) || parent_span_id(8) || flags(1) || origin_len(1) || origin
-_CTX_WIRE_VERSION = 1
-_CTX_MAX_WIRE_BYTES = 64
-_CTX_ORIGIN_MAX = 40
-
 
 def trace_ctx_valid(raw: bytes) -> bool:
-    """Whether a received trace context passes the reference's strict
-    decode (``TraceContext.decode``); garbage is untraced, not an error."""
-    try:
-        if (not raw or len(raw) > _CTX_MAX_WIRE_BYTES or len(raw) < 19
-                or raw[0] != _CTX_WIRE_VERSION):
-            return False
-        olen = raw[18]
-        if olen > _CTX_ORIGIN_MAX or len(raw) != 19 + olen:
-            return False
-        raw[19:19 + olen].decode("ascii")
-        return True
-    except Exception:  # noqa: BLE001 - a malformed context never raises
-        return False
+    """Whether a received trace context passes the strict decode
+    (``trace.TraceContext.decode``); garbage is untraced, not an error."""
+    return trace.TraceContext.decode(raw) is not None
 
 
 def launch_counts() -> Dict[str, int]:
@@ -433,11 +424,18 @@ class SidecarServer:
             return
         deadline_s = (req.deadline_ms / 1000.0 if req.deadline_ms
                       else self._default_deadline_s)
+        # v2 trace context: strict decode, garbage is untraced (advisory,
+        # never rejected)
+        trace_ctx = None
+        if req.trace_ctx:
+            trace_ctx = trace.adopt(bytes(req.trace_ctx))
+            counter = (lib_metrics.trace_context_invalid if trace_ctx is None
+                       else lib_metrics.trace_context_rx)
+            counter.inc(transport="sidecar")
         try:
             pending = self.coalescer.submit(
                 client_id, req.curve, req.pks, req.msgs, req.sigs, req.powers, req.tally,
-                deadline_s=deadline_s,
-                traced=bool(req.trace_ctx) and trace_ctx_valid(bytes(req.trace_ctx)))
+                deadline_s=deadline_s, trace_ctx=trace_ctx)
         except Overloaded as exc:
             reject(proto.STATUS_OVERLOADED, str(exc))
             return
@@ -487,7 +485,8 @@ class SidecarServer:
                     self.send_response(200 if healthy else 503)
                     ctype = "application/json"
                 elif self.path.startswith("/metrics"):
-                    body = server.metrics.render().encode()
+                    body = lib_metrics.render(lib_metrics.DEFAULT,
+                                              server.metrics.registry).encode()
                     self.send_response(200)
                     ctype = "text/plain; version=0.0.4"
                 else:
