@@ -31,8 +31,9 @@ gather window (one dispatch of 40,000 lanes, one launch of 10,000), one
 more request (the commit flush over the wire: hits but for the corrupted
 lanes) and (c) the mixed-curve set as one request a curve, then (d) a
 third daemon opted in to the mesh (``--mesh-devices 0``) with the
-10,000-vote set: split one launch a card on two or more cards, one launch
-on one, then (e) a daemon given only ``--home``, whose
+10,000-vote set: split one launch a card on two or more cards (each
+card's occupancy in the daemon's Stats grown by its shard's lanes), one
+launch on one, and five more round trips timed against (a)'s, then (e) a daemon given only ``--home``, whose
 ``config/config.toml`` (written by this script) sets its address, lane
 cap and request deadline, and (f) a daemon with ``--health-laddr``:
 ``/healthz`` healthy and warmed, and after one 10,000-lane request
@@ -1110,14 +1111,15 @@ def sidecar_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
         y.terminate()
 
         # (d) a daemon that opts in to the mesh (every card): on two or more
-        # cards its dispatch splits, one launch a card; on one it cannot
+        # cards its dispatch splits, one launch a card, shard i on cuda:i
+        # (make_mesh); on one it cannot
         cards = torch.cuda.device_count()
+        used0 = [card_used_bytes(d) for d in range(cards)] if cards >= 2 else []
         z = Daemon("mesh", "--no-sigcache", "--mesh-devices", "0")
         daemons.append(z)
         before = z.stats()
         c = z.client("validator-0")
         mask, tallied, info = c.verify(crypto_batch.ED25519, lanes, tally=True, deadline_s=60.0)
-        c.close()
         after = z.stats()
         check(mask == want_mask and tallied == want_tally, "sidecar (d): mask and tally")
         routed = after["coalescer"]["mesh_dispatches"] - before["coalescer"]["mesh_dispatches"]
@@ -1126,12 +1128,45 @@ def sidecar_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
               and launch_delta(before, after)["ed25519_verify"] == len(want_sizes),
               f"sidecar (d): {cards} card(s), mesh dispatches {routed}, "
               f"launches {launch_delta(before, after)}")
+        out["mesh_daemon_routed"] = routed
+        split = ""
         if cards >= 2:
             check(after["mesh"]["last"]["shard_lanes"] == want_sizes,
                   f"sidecar (d): shard lanes {after['mesh']['last']}")
-        out["mesh_daemon_routed"] = routed
+            check(after["mesh"]["devices"] == cards,
+                  f"sidecar (d): the daemon's mesh spans {after['mesh']['devices']} devices")
+            # occupancy is cumulative since the daemon started, a key a card
+            occ0, occ1 = before["mesh"]["occupancy_lanes"], after["mesh"]["occupancy_lanes"]
+            grown = [occ1.get(str(d), 0) - occ0.get(str(d), 0) for d in range(cards)]
+            check(grown == want_sizes, f"sidecar (d): occupancy grew by {grown} on cards "
+                                       f"0-{cards - 1}, want {want_sizes}")
+            # read from outside the daemon: the device memory its process
+            # came to hold on each card (its CUDA context and tensors)
+            held = [(card_used_bytes(d) - used0[d]) / 2**20 for d in range(cards)]
+            out.update(mesh_daemon_shard_lanes=grown, mesh_daemon_card_mib=held)
+            split = (f", shard lanes {grown} on cards 0-{cards - 1} (occupancy), the daemon's "
+                     f"process holds {', '.join(f'{m:.0f}' for m in held)} MiB on them")
         print(f"sidecar (d): a daemon with --mesh-devices 0 on {cards} card(s): mesh dispatches "
-              f"{routed}, launches {launch_delta(before, after)}, mask and tally exact")
+              f"{routed}, launches {launch_delta(before, after)}{split}, mask and tally exact")
+        # the split's round trip against the one-card daemon of (a), both
+        # cache-off on the same 10,000 lanes: a reading, not a bar
+        rtts = []
+        before = z.stats()
+        for _ in range(5):
+            t0 = time.perf_counter()
+            mask, tallied, info = c.verify(crypto_batch.ED25519, lanes, tally=True, deadline_s=60.0)
+            rtts.append((time.perf_counter() - t0) * 1e3)
+            check(mask == want_mask and tallied == want_tally, "sidecar (d): timed mask and tally")
+        c.close()
+        after = z.stats()
+        check(launch_delta(before, after)["ed25519_verify"] == 5 * len(want_sizes),
+              f"sidecar (d): timed launches {launch_delta(before, after)}")
+        out["mesh_daemon_rtt_ms"] = statistics.median(rtts)
+        out["mesh_daemon_rtt_ms_all"] = rtts
+        print(f"sidecar (d): round trip over {len(want_sizes)} shard(s) on {cards} card(s) "
+              f"{out['mesh_daemon_rtt_ms']:.3f} ms median of 5 "
+              f"({', '.join(f'{t:.1f}' for t in rtts)}) against {out['rtt_ms']:.3f} ms on one "
+              f"card in (a) [{card}]")
         z.terminate()
         print("sidecar daemons: all three drained and exited 0 on SIGTERM")
     except Exception:
@@ -1142,6 +1177,13 @@ def sidecar_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
         for d in daemons:
             d.kill()
     return out
+
+
+def card_used_bytes(d: int) -> int:
+    """Device memory in use on card ``d`` by every process, as the driver
+    reports it."""
+    free, total = torch.cuda.mem_get_info(d)
+    return total - free
 
 
 def free_port() -> int:

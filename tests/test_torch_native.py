@@ -3,9 +3,14 @@ reference package's C host prep (tmtpu/native) and the port's plain Python
 prep (``prepare_batch_packed_plain``, ``prepare_sr_batch_packed_plain``),
 with 1, 3 and 8 threads: empty and one-lane batches, messages of 0-300
 bytes across the SHA-512 padding edges and the STROBE rate, and the
-adversarial corpora of tests/torch_corpus.py. A build that fails raises."""
+adversarial corpora of tests/torch_corpus.py. A build that fails raises.
+The reduction mod L alone (``reduce_mod_l_for_tests``) is held against
+Python's ``int % L`` on constructed and random 512-bit values, and its
+Barrett constants and bound are derived from L."""
 
 import hashlib
+import re
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -190,3 +195,87 @@ def test_library_name_follows_the_toolchain(monkeypatch):
     here = native.lib_path()
     monkeypatch.setattr(native, "_toolchain", lambda cmd: "another compiler 1.0\naarch64")
     assert native.lib_path() != here
+
+
+# ed25519's group order, the modulus of the prep's reduction
+L = 2**252 + 27742317777372353535851937790883648493
+
+
+def _c_constant(name):
+    """``static const uint64_t name[]`` of hostprep.c as one integer (the
+    limbs are little-endian)."""
+    with open(native.SRC) as fh:
+        src = fh.read()
+    body = re.search(rf"static const uint64_t {name}\[\d+\] = \{{(.*?)\}};", src, re.S).group(1)
+    words = [int(w, 16) for w in re.findall(r"0x([0-9a-fA-F]+)ULL", body)]
+    return sum(w << (64 * i) for i, w in enumerate(words))
+
+
+def _subtractions(x, mu):
+    """How many subtractions of L the C code's remainder x - q^ L needs,
+    with its estimate q^ = floor(floor(x / 2^192) mu / 2^320)."""
+    return (x - (((x >> 192) * mu) >> 320) * L) // L
+
+
+def _near(k):
+    return [k * L + d for d in (-1, 0, 1, 2)]
+
+
+_KMAX = (2**512 - 1) // L
+
+
+def _low_ones(x):
+    """x with its low 192 bits all ones (x0 at its largest)."""
+    return x | (2**192 - 1)
+
+
+_RANDOM = np.random.default_rng(11).bytes(64 * 300)
+REDUCTION_INPUTS = {
+    "edges": [0, 1, L - 1, L, L + 1, 2**512 - 1],
+    "near the top": [x for k in range(_KMAX - 2, _KMAX + 1) for x in _near(k) if x < 2**512],
+    "near 2^259 L": [x for k in (2**259 - 1, 2**259, 2**259 + 1) for x in _near(k)],
+    "low 192 bits set": [_low_ones(x) for x in (0, L << 192, _KMAX * L, 2**259 * L,
+                                                (2**511 - 1) // L * L)],
+    "random": [int.from_bytes(_RANDOM[64 * i:64 * i + 64], "little") for i in range(300)],
+}
+
+
+@pytest.mark.parametrize("group", list(REDUCTION_INPUTS))
+def test_reduce_mod_l_equals_int_mod_l(group):
+    xs = REDUCTION_INPUTS[group]
+    assert xs and all(0 <= x < 2**512 for x in xs)
+    rows = np.array([list(x.to_bytes(64, "little")) for x in xs], dtype=np.uint8)
+    out = native.reduce_mod_l_for_tests(rows)
+    assert [int.from_bytes(r.tobytes(), "little") for r in out] == [x % L for x in xs]
+    mu = _c_constant("MU")
+    assert max(_subtractions(x, mu) for x in xs) <= 1
+
+
+def test_reduction_reaches_no_and_one_subtraction_never_two():
+    """The constructed values reach both the remainder that needs no
+    subtraction and the one that needs one; no value, constructed or
+    random, needs a second (the bound below)."""
+    mu = _c_constant("MU")
+    constructed = [x for g, xs in REDUCTION_INPUTS.items() if g != "random" for x in xs]
+    assert {_subtractions(x, mu) for x in constructed} == {0, 1}
+    assert {_subtractions(x, mu) for x in REDUCTION_INPUTS["random"]} <= {0, 1}
+
+
+def test_reduction_constants_and_bound():
+    """hostprep.c's L_LIMBS is L and MU is floor(2^512 / L); the estimate's
+    shortfall x0 / L + q1 d / 2^320 < 2^192 / L + d (d the fraction of
+    2^512 / L) is below 1, so one subtraction of L suffices."""
+    mu = _c_constant("MU")
+    assert _c_constant("L_LIMBS") == L
+    assert mu == 2**512 // L
+    d = Fraction(2**512, L) - mu
+    assert 0 <= d < 1
+    assert Fraction(2**192, L) < Fraction(1, 2**60)
+    assert Fraction(2**192, L) + d < 1
+    assert Fraction(2**192, L) + d < Fraction(2250, 10000)
+
+
+def test_reduce_mod_l_rows_are_checked():
+    with pytest.raises(ValueError, match=r"\[n, 64\]"):
+        native.reduce_mod_l_for_tests(np.zeros((2, 32), np.uint8))
+    assert native.reduce_mod_l_for_tests(np.zeros((0, 64), np.uint8)).shape == (0, 32)

@@ -12,7 +12,9 @@ device-path entries, and the signature cache's store:
   ``crypto/sigcache.py``, and ``resolve``, which computes a flush's cache
   keys (``sigcache.cache_key`` of every lane), looks them up in a store
   and folds the flush's repeated misses onto their first lane in one
-  call; ``cache_keys`` is its key pass alone.
+  call; ``cache_keys`` is its key pass alone;
+- ``reduce_mod_l_for_tests``: the prep's reduction mod L alone, which the
+  tests hold against Python's ``int % L``.
 
 The library is built at first use (``load``) into the gitignored
 ``tmtpu_torch/gpu/build/host/``, named by a hash of the source, the flags,
@@ -63,6 +65,8 @@ _SIGNATURES = {
     "tmtpu_sha256_ni": ([ctypes.c_int], ctypes.c_int),
     # store, n, keys, &evicted -> inserted
     "tmtpu_cache_add": ([_P, ctypes.c_size_t, _P, _P], ctypes.c_int64),
+    # n, in (n rows of 64 bytes), out (n rows of 32 bytes); the tests' entry
+    "tmtpu_reduce_mod_l": [ctypes.c_size_t, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -186,6 +190,18 @@ def sr_challenges(pk_arr, r_arr, msgs, nthreads=None) -> np.ndarray:
     lib.tmtpu_sr_challenges(n, pk_arr.ctypes.data, r_arr.ctypes.data, mbuf.ctypes.data,
                             moff.ctypes.data, k_out.ctypes.data, _threads(nthreads))
     return k_out
+
+
+def reduce_mod_l_for_tests(values) -> np.ndarray:
+    """The prep's reduction mod L alone, for the tests: ``values`` [n, 64]
+    uint8, each row a 512-bit little-endian integer; returns [n, 32] uint8,
+    each row reduced mod L, little-endian. No flush calls it."""
+    rows = np.ascontiguousarray(values, dtype=np.uint8)
+    if rows.ndim != 2 or rows.shape[1] != 64:
+        raise ValueError(f"expected [n, 64] uint8 rows, got shape {rows.shape}")
+    out = np.empty((len(rows), 32), dtype=np.uint8)
+    load().tmtpu_reduce_mod_l(len(rows), rows.ctypes.data, out.ctypes.data)
+    return out
 
 
 def resolve(store, types, pks, msgs, sigs, nthreads=None):

@@ -9,7 +9,8 @@
  *   tmtpu_sr_challenges  the merlin transcript walk of an sr25519
  *                        (schnorrkel) verify, k = challenge mod L per lane;
  *
- * and the verified-signature cache's store (tmtpu_cache_*): a sharded,
+ * their reduction mod L alone (tmtpu_reduce_mod_l, which only the tests
+ * call); and the verified-signature cache's store (tmtpu_cache_*): a sharded,
  * lock-striped LRU set of 32-byte keys, with tmtpu_cache_resolve, which
  * computes a flush's keys (SHA-256 of the length-prefixed (curve, pk,
  * msg, sig), byte-identical to crypto/sigcache.py's ``cache_key``) on
@@ -393,20 +394,30 @@ static void mul_n(const uint64_t *a, int na, const uint64_t *b, int nb, uint64_t
     }
 }
 
-/* 64 bytes little-endian -> 32 bytes little-endian, reduced mod L. The
- * quotient estimate q = floor(floor(x / 2^192) mu / 2^320) is at most two
- * below the true quotient, so r = x - qL < 3L needs at most two
- * subtractions. */
+/* 64 bytes little-endian -> 32 bytes little-endian, reduced mod L. With
+ * x = q1 2^192 + x0 (x0 < 2^192) and mu = 2^512 / L - d, d = 0.22492 the
+ * fraction of 2^512 / L, the estimate q^ = floor(q1 mu / 2^320) falls
+ * short of x / L by x0 / L + q1 d / 2^320 < 2^-60 + 0.2250 < 1, so q^ is
+ * the true quotient q or q - 1 (and never above it): r = x - q^ L < 2L
+ * and one subtraction of L suffices. The loop stays correct whatever the
+ * bound; tests/test_torch_native.py derives the bound from the constants
+ * above. */
 static void reduce_mod_l(const uint8_t in[64], uint8_t out[32]) {
     uint64_t x[8], t[10], ql[9], r[8];
     for (int k = 0; k < 8; k++) x[k] = load_le64(in + 8 * k);
     mul_n(x + 3, 5, MU, 5, t);
     mul_n(t + 5, 5, L_LIMBS, 4, ql);
     memcpy(r, x, sizeof r);
-    sub_n(r, ql, 8); /* r < 3L < 2^254: limbs 4..7 cancel */
+    sub_n(r, ql, 8); /* r < 2L < 2^254: limbs 4..7 cancel */
     while (geq_n(r, L_LIMBS, 4)) sub_n(r, L_LIMBS, 4);
     for (int k = 0; k < 4; k++)
         for (int b = 0; b < 8; b++) out[8 * k + b] = (uint8_t)(r[k] >> (8 * b));
+}
+
+/* For the tests only: n 64-byte little-endian values in, each reduced mod
+ * L to 32 bytes out. The prep entries call reduce_mod_l directly. */
+void tmtpu_reduce_mod_l(size_t n, const uint8_t *in, uint8_t *out) {
+    for (size_t i = 0; i < n; i++) reduce_mod_l(in + 64 * i, out + 32 * i);
 }
 
 /* ------------------------------------------------------------------ */
