@@ -55,7 +55,8 @@ the mesh, and calls ``entry()`` and ``dryrun_multichip``; every other
 phase runs with the mesh off, the port's default, on any number of
 cards. Before the mesh, the observability phase reads the spans of the
 real flush (``tmtpu_torch/libs/trace.py``): the cold 10,000-lane flush's
-tree and stage times, with the execute stage's device time held within
+roots (the cache's resolve and insert, the tree, the bit pack), the
+tree's stage times, with the execute stage's device time held within
 15% of the kernel alone; one execute span a curve for the mixed set; and
 the cold flush with tracing on against off, in turns.
 
@@ -586,9 +587,12 @@ def tally_past_2_63(key, msg, sig) -> dict:
 def observability_phase(keys, msgs, sigs, expect, m_keys, m_msgs, m_sigs, m_expect,
                         kernel_ms, card) -> dict:
     """The device path's spans read from the real flush: (i) the cold
-    10,000-lane ed25519 verify_tally, traced, has the reference's tree
-    (``crypto.batch_verify_tally`` over prepare, device_put, execute and
-    readback, ``lanes`` 10,000), the children's sum within the parent's
+    10,000-lane ed25519 verify_tally, traced, records four roots in turn:
+    ``sigcache.resolve`` (``lanes`` 10,000, ``hits`` 0), the reference's
+    tree (``crypto.batch_verify_tally`` over prepare, device_put, execute
+    and readback, ``lanes`` 10,000), ``sigcache.insert`` (``lanes`` the
+    valid lanes) and ``crypto.pack_words`` (``lanes`` 10,000); the
+    children's sum within the parent's
     time and that within the flush's wall time, and ``ed25519.execute``'s
     ``device_ms`` within 15% of the kernel alone on the flush's plane,
     timed with CUDA events, each launch after a host pause as long as the
@@ -617,16 +621,19 @@ def observability_phase(keys, msgs, sigs, expect, m_keys, m_msgs, m_sigs, m_expe
     check(mask == expect.tolist() and tally == POWER * int(expect.sum()),
           "observability (i): mask and tally")
     check(out["launches"]["ed25519_verify"] == 1, f"observability (i): {out['launches']}")
-    roots = [sp for sp in spans if sp.parent_id is None]
-    check(len(roots) == 1 and roots[0].name == "crypto.batch_verify_tally"
-          and roots[0].attrs.get("lanes") == n and roots[0].attrs.get("impl") == "cuda",
-          f"observability (i): one root span of {n} lanes ({roots})")
-    root = roots[0]
+    roots = sorted((sp for sp in spans if sp.parent_id is None), key=lambda sp: sp.start_s)
+    check([(sp.name, sp.attrs.get("lanes")) for sp in roots]
+          == [("sigcache.resolve", n), ("crypto.batch_verify_tally", n),
+              ("sigcache.insert", int(expect.sum())), ("crypto.pack_words", n)]
+          and roots[0].attrs.get("hits") == 0 and roots[1].attrs.get("impl") == "cuda",
+          f"observability (i): the resolve, the tree, the insert and the bit pack "
+          f"({[(sp.name, sp.attrs) for sp in roots]})")
+    root = roots[1]
     children = sorted((sp for sp in spans if sp.parent_id == root.span_id),
                       key=lambda sp: sp.start_s)
     names = [sp.name for sp in children]
     check(names == ["ed25519.prepare", "ed25519.device_put", "ed25519.execute",
-                    "ed25519.readback"] and len(spans) == 5,
+                    "ed25519.readback"] and len(spans) == 8,
           f"observability (i): the reference's tree but ed25519.pad ({[sp.name for sp in spans]})")
     check(children[0].attrs == {"lanes": n}, f"observability (i): prepare {children[0].attrs}")
     stages = {sp.name.split(".")[1]: sp.duration_s * 1e3 for sp in children}

@@ -78,12 +78,12 @@ def test_config_and_metrics_are_covered():
     assert {"tmtpu_torch.config", "tmtpu_torch.sidecar.metrics"} <= set(_module_names())
 
 
-LIBS = ("tmtpu_torch.libs.trace", "tmtpu_torch.libs.metrics", "tmtpu_torch.libs.timeline")
+LIBS = ("tmtpu_torch.libs.trace", "tmtpu_torch.libs.metrics")
 
 
 def test_observability_libraries_are_covered_and_stand_alone():
-    """The port's copies of the reference's span ring, metric registry and
-    timeline are among the modules checked above, and load behind a hook
+    """The port's copies of the reference's span ring and metric registry
+    are among the modules checked above, and load behind a hook
     that refuses ``jax``, ``tmtpu`` and ``torch``: they are copies, not
     bindings, and need nothing of the device."""
     assert set(LIBS) <= set(_module_names())

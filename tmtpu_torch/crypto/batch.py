@@ -23,26 +23,28 @@ reference's ``_mesh_first``. There is no breaker, no fallback from the mesh
 to one device and no serial CPU fallback; groups below the reference's
 serial threshold go to the device too, which gives the same mask.
 
-Observability, as the reference records it: the resolve counts dedup
-lanes (``crypto_sigcache_dedup_lanes_total``; the cache counts its own
-hits, misses, inserts and evictions) and records ``record_sigcache`` for a
-flush with hits or dedup; each dispatch records its span tree and one
-``observe_crypto_batch``; ``_verify_pending`` ends with ``record_flush``
-(``backend`` the device label, ``gpu`` or ``cpu``); a verifier's device,
-once resolved, sets ``crypto_tpu_backend_up``.
+Observability: the resolve counts dedup lanes
+(``crypto_sigcache_dedup_lanes_total``; the cache counts its own hits,
+misses, inserts and evictions), as the reference does; each dispatch
+records its span tree and one ``observe_crypto_batch``; a verifier's
+device, once resolved, sets ``crypto_tpu_backend_up``. Spans the reference
+does not record: ``sigcache.resolve`` (the cache's C call and the
+bookkeeping that picks the lanes to dispatch; ``lanes``, ``hits``),
+``sigcache.insert`` (the successes added; ``lanes``) and
+``crypto.pack_words`` (``verify_tally``'s bit pack on the device and its
+readback; ``lanes``).
 """
 
 from __future__ import annotations
 
 import itertools
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from tmtpu_torch import device as device_mod
 from tmtpu_torch.crypto import sigcache
-from tmtpu_torch.libs import metrics, timeline
+from tmtpu_torch.libs import metrics, trace
 
 ED25519 = "ed25519"
 SR25519 = "sr25519"
@@ -129,13 +131,16 @@ class BatchVerifier:
             mask, tallied = self._verify_pending(lanes, tally)
             self.cache_stats = {"lanes": n, "hits": 0, "dedup": 0, "dispatched": n}
             return all(mask), mask, tallied
-        keys, rep = cache.resolve(lanes.types, lanes.pks, lanes.msgs, lanes.sigs)
-        hit = rep < 0
-        # Python ints: a sum of powers may pass 2^63, as the reference's may
-        tallied = sum(itertools.compress(lanes.powers, hit.tolist()))
-        mask = hit.copy()
-        first = rep == np.arange(n)
-        pending = np.flatnonzero(first)
+        with trace.span("sigcache.resolve", lanes=n) as sp:
+            keys, rep = cache.resolve(lanes.types, lanes.pks, lanes.msgs, lanes.sigs)
+            hit = rep < 0
+            # Python ints: a sum of powers may pass 2^63, as the reference's may
+            tallied = sum(itertools.compress(lanes.powers, hit.tolist()))
+            mask = hit.copy()
+            first = rep == np.arange(n)
+            pending = np.flatnonzero(first)
+            hits = int(hit.sum())
+            sp.set(hits=hits)
         if len(pending):
             sub = lanes.take(pending.tolist())
             # a group's powers ride on its one lane, so the device tally
@@ -150,16 +155,15 @@ class BatchVerifier:
             tallied += sub_tallied
             ok = np.zeros(n, dtype=bool)
             ok[pending] = sub_mask
-            cache.add_many(keys[pending[ok[pending]]])
+            verified = keys[pending[ok[pending]]]
+            with trace.span("sigcache.insert", lanes=len(verified)):
+                cache.add_many(verified)
             mask[~hit] = ok[rep[~hit]]
-        hits = int(hit.sum())
         dedup = n - hits - len(pending)
         if dedup:
             metrics.crypto_sigcache_dedup_lanes.inc(dedup)
         self.cache_stats = {"lanes": n, "hits": hits, "dedup": dedup,
                             "dispatched": len(pending)}
-        if n and (hits or dedup):
-            timeline.record_sigcache(lanes=n, hits=hits, dedup=dedup, dispatched=len(pending))
         mask = mask.tolist()
         return all(mask), mask, tallied
 
@@ -200,7 +204,6 @@ class TorchBatchVerifier(BatchVerifier):
         from tmtpu_torch.gpu import k1_verify, mesh_dispatch, sharding, sr_verify
         from tmtpu_torch.gpu import verify as tv
 
-        t0 = time.perf_counter()
         kinds = set(lanes.types)
         for kind in kinds:
             if kind not in PUB_KEY_SIZES:
@@ -234,15 +237,14 @@ class TorchBatchVerifier(BatchVerifier):
                     m = verify_fn(sub.pks, sub.msgs, sub.sigs, device=self.device)
                 tallied += sum(itertools.compress(sub.powers, m.tolist()))
             mask[idx] = m
-        timeline.record_flush(backend=metrics.backend_label(self.device), lanes=len(lanes),
-                              ok=int(mask.sum()), seconds=round(time.perf_counter() - t0, 6))
         return mask.tolist(), tallied
 
     def verify_tally(self) -> Tuple[bool, List[bool], int]:
         from tmtpu_torch.gpu import sharding
 
         all_ok, mask, tallied = super().verify_tally()
-        self.bit_words = sharding.pack_words(mask, self.device)
+        with trace.span("crypto.pack_words", lanes=len(mask)):
+            self.bit_words = sharding.pack_words(mask, self.device)
         return all_ok, mask, tallied
 
 

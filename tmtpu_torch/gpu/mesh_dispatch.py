@@ -28,8 +28,8 @@ or ``crypto.mesh_verify``, its device time from an event pair on the first
 device's stream, which the join makes wait on every shard), the mesh
 families (``crypto_mesh_*``; a shard's lanes are the first shard's, the
 pad ratio 1; ``crypto_mesh_psum_seconds`` the host readback of the joined
-limb sums once the join's event has passed), one ``observe_crypto_batch``
-with ``impl="mesh"`` and ``record_flush(backend="mesh")``.
+limb sums once the join's event has passed) and one
+``observe_crypto_batch`` with ``impl="mesh"``.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ from tmtpu_torch.gpu import k1_verify as kv
 from tmtpu_torch.gpu import sharding, spans
 from tmtpu_torch.gpu import sr_verify as sv
 from tmtpu_torch.gpu import verify as tv
-from tmtpu_torch.libs import metrics, timeline, trace
+from tmtpu_torch.libs import metrics, trace
 
 ED25519 = "ed25519"
 SR25519 = "sr25519"
@@ -135,10 +135,9 @@ def _mesh(device, mesh) -> tuple:
 
 def _note_dispatch(curve: str, lanes: int, n: int, backend: str, psum_s: float,
                    seconds: float) -> None:
-    """Count one dispatch in the Stats, the mesh families, the crypto
-    families (``impl="mesh"``) and the timeline (``backend="mesh"``). With
-    no pad lanes, a shard's lanes are the first (largest) shard's and the
-    pad ratio is 1."""
+    """Count one dispatch in the Stats, the mesh families and the crypto
+    families (``impl="mesh"``). With no pad lanes, a shard's lanes are the
+    first (largest) shard's and the pad ratio is 1."""
     sizes = [hi - lo for lo, hi in sharding.shard_bounds(lanes, n)]
     sizes += [0] * (n - len(sizes))
     with _lock:
@@ -153,8 +152,6 @@ def _note_dispatch(curve: str, lanes: int, n: int, backend: str, psum_s: float,
     metrics.crypto_mesh_shard_lanes.observe(sizes[0], curve=curve)
     metrics.crypto_mesh_pad_ratio.observe(1.0, curve=curve)
     metrics.crypto_mesh_psum_seconds.observe(psum_s)
-    timeline.record_flush(backend="mesh", curve=curve, lanes=lanes, shards=n,
-                          shard_lanes=sizes, seconds=round(seconds, 6))
     metrics.observe_crypto_batch(curve, backend, "mesh", lanes, 0, seconds)
 
 

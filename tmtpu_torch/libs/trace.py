@@ -20,7 +20,9 @@ and ``to_jsonl`` export it.
 ``TraceContext`` is the cross-process context a node sends the sidecar
 daemon (v2 VerifyRequest ``trace_ctx``): ``adopt`` decodes it strictly
 (garbage is untraced, never an error) and ``mark`` records an instant
-span tagged with it.
+span tagged with it. ``record`` adds a completed span from two
+``perf_counter`` readings, for a wait that starts on one thread and ends on
+another.
 
 Left out, since only a node uses them: height trace ids, outbound wire
 contexts, sampling, the ``traced`` decorator, the thread's current
@@ -241,6 +243,19 @@ class Tracer:
         self._append(sp)
         return sp
 
+    def record(self, name: str, start_s: float, end_s: float, **attrs) -> None:
+        """Record a completed span from two ``time.perf_counter()``
+        readings taken elsewhere, nested on the calling thread: for a wait
+        whose two ends lie on different threads."""
+        if not self._enabled:
+            return
+        t = threading.current_thread()
+        stack = self._stack()
+        sp = Span(name, next(self._ids), stack[-1].span_id if stack else None,
+                  t.ident or 0, t.name, start_s, dict(attrs))
+        sp.end_s = end_s
+        self._append(sp)
+
     def snapshot(self) -> List[Span]:
         """Current ring contents, oldest first, without clearing."""
         with self._lock:
@@ -338,6 +353,10 @@ def span(name: str, **attrs):
 
 def mark(name: str, ctx: Optional[TraceContext] = None, **attrs):
     return DEFAULT.mark(name, ctx=ctx, **attrs)
+
+
+def record(name: str, start_s: float, end_s: float, **attrs) -> None:
+    DEFAULT.record(name, start_s, end_s, **attrs)
 
 
 def adopt(raw: bytes) -> Optional[TraceContext]:

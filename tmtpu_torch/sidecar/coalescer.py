@@ -29,11 +29,21 @@ distinct clients, traced requests).
   the count.
 
 The reference's ``sidecar_server_*`` metrics are kept in ``metrics``
-(``sidecar/metrics.py``). Each joint dispatch also records the
-reference's ``record_sidecar`` timeline event (``role="server"``) and one
+(``sidecar/metrics.py``). Each joint dispatch also records one
 ``sidecar.dispatch`` trace mark per distinct trace id among its requests'
 decoded contexts; the scheduler's ``target_lanes`` sets
 ``crypto_flush_target_lanes``.
+
+Requests are stamped, ordered and held to their deadlines on
+``time.perf_counter()``, the clock of the spans. The dispatcher records
+each request's ``coalescer.queue_wait``, from ``submit``'s enqueue to the
+cut of its batch (``client``, ``request_id``, ``lanes``, ``dispatch_id``,
+0 for a request that expired, and ``linger_ms``, the part of the wait the
+gather window chose to linger), and a ``coalescer.dispatch`` span over the
+column join, the engine (the flush's span tree nests under it), the
+per-request masks and tallies and the wake-ups (``dispatch_id``,
+``lanes``, ``requests``, ``clients``). A request's ``done_at`` stamps its
+wake-up, so the thread that waits on it can time the handoff.
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from tmtpu_torch.libs import metrics as lib_metrics
-from tmtpu_torch.libs import timeline, trace
+from tmtpu_torch.libs import trace
 from tmtpu_torch.sidecar.metrics import SidecarMetrics
 
 # the verify engine: (curve, pks, msgs, sigs, powers, tally) -> (mask,
@@ -140,21 +150,23 @@ class AdaptiveFlushScheduler:
 class PendingRequest:
     """One client's verify request riding toward a joint dispatch."""
 
-    __slots__ = ("client_id", "curve", "pks", "msgs", "sigs", "powers", "tally",
-                 "deadline", "enqueued_at", "done", "mask", "tallied", "error",
-                 "failure", "dispatch_id", "dispatch_lanes", "dispatch_clients",
-                 "trace_ctx", "dispatch_traces")
+    __slots__ = ("client_id", "request_id", "curve", "pks", "msgs", "sigs", "powers",
+                 "tally", "deadline", "enqueued_at", "done", "done_at",
+                 "mask", "tallied", "error", "failure", "dispatch_id", "dispatch_lanes",
+                 "dispatch_clients", "trace_ctx", "dispatch_traces")
 
     def __init__(self, client_id: str, curve: str, pks, msgs, sigs, powers,
                  tally: bool, deadline: Optional[float],
-                 trace_ctx: Optional[trace.TraceContext] = None):
+                 trace_ctx: Optional[trace.TraceContext] = None, request_id: int = 0):
         self.client_id = client_id
+        self.request_id = request_id
         self.curve = curve
         self.pks, self.msgs, self.sigs, self.powers = pks, msgs, sigs, powers
         self.tally = tally
-        self.deadline = deadline          # monotonic, None = no deadline
-        self.enqueued_at = time.monotonic()
+        self.deadline = deadline          # perf_counter, None = no deadline
+        self.enqueued_at = time.perf_counter()
         self.done = threading.Event()
+        self.done_at = 0.0                # perf_counter at finish()
         self.mask: Optional[List[bool]] = None
         self.tallied = 0
         self.error = ""
@@ -169,6 +181,11 @@ class PendingRequest:
 
     def __len__(self) -> int:
         return len(self.sigs)
+
+    def finish(self) -> None:
+        """Wake the waiter, stamping when."""
+        self.done_at = time.perf_counter()
+        self.done.set()
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         return self.done.wait(timeout)
@@ -227,21 +244,23 @@ class Coalescer:
         for req in leftovers:
             req.error = "coalescer stopped"
             req.failure = "stopped"
-            req.done.set()
+            req.finish()
 
     # --- client side ---
 
     def submit(self, client_id: str, curve: str, pks, msgs, sigs, powers,
                tally: bool, deadline_s: Optional[float] = None,
-               trace_ctx: Optional[trace.TraceContext] = None) -> PendingRequest:
+               trace_ctx: Optional[trace.TraceContext] = None,
+               request_id: int = 0) -> PendingRequest:
         """Enqueue one request's columns; returns a waitable
         ``PendingRequest``. Raises ``Overloaded`` when the queues are full
         (never queues part of a request). ``trace_ctx`` tags the joint
-        dispatch the request rides."""
+        dispatch the request rides; ``request_id`` (the wire's) tags its
+        spans."""
         req = PendingRequest(
             client_id, curve, pks, msgs, sigs, powers, tally,
-            None if deadline_s is None else time.monotonic() + deadline_s,
-            trace_ctx=trace_ctx)
+            None if deadline_s is None else time.perf_counter() + deadline_s,
+            trace_ctx=trace_ctx, request_id=request_id)
         n = len(req)
         with self._cond:
             if not self._running:
@@ -311,6 +330,7 @@ class Coalescer:
     def _run(self) -> None:
         while True:
             batch: List[PendingRequest] = []
+            linger_from = None  # perf_counter when the window began to linger
             with self._cond:
                 while self._running:
                     curve = self._pick_curve_locked()
@@ -324,11 +344,13 @@ class Coalescer:
                     wait = self.scheduler.gather_wait_s(lanes)
                     if lanes >= self._max_lanes_per_dispatch:
                         wait = 0.0
-                    now = time.monotonic()
+                    now = time.perf_counter()
                     remaining = wait - (now - q[0].enqueued_at)
                     if q[0].deadline is not None:
                         remaining = min(remaining, q[0].deadline - now)
                     if remaining > 1e-4:
+                        if linger_from is None:
+                            linger_from = now
                         self._cond.wait(timeout=remaining)
                         continue
                     # whole requests up to the cap, always at least one
@@ -340,12 +362,13 @@ class Coalescer:
                     self._queued_lanes -= taken
                     self._inflight += 1
                     self.metrics.queue_lanes.set(self._queued_lanes)
+                    cut = time.perf_counter()
                     break
                 if not self._running:
                     return
             if batch:
                 try:
-                    self._dispatch(batch[0].curve, batch)
+                    self._dispatch(batch[0].curve, batch, cut, linger_from)
                 finally:
                     with self._cond:
                         self._inflight -= 1
@@ -358,31 +381,53 @@ class Coalescer:
         for req in live:
             req.error = error
             req.failure = "engine"
-            req.done.set()
+            req.finish()
 
-    def _dispatch(self, curve: str, batch: List[PendingRequest]) -> None:
+    def _dispatch(self, curve: str, batch: List[PendingRequest], cut: float,
+                  linger_from: Optional[float]) -> None:
+        """Answer the expired requests of a batch cut at ``cut``
+        (perf_counter), record every request's queue wait, and verify the
+        rest in one joint dispatch."""
         # expired requests are answered without spending device lanes
-        now = time.monotonic()
+        now = time.perf_counter()
         live: List[PendingRequest] = []
         for req in batch:
             if req.deadline is not None and now > req.deadline:
                 req.error = "deadline expired before dispatch"
                 req.failure = "expired"
-                req.done.set()
+                req.finish()
             else:
                 live.append(req)
+        dispatch_id = 0
+        if live:
+            with self._lock:
+                self._dispatch_seq += 1
+                dispatch_id = self._dispatch_seq
+        for req in batch:
+            linger = (0.0 if linger_from is None
+                      else max(0.0, cut - max(linger_from, req.enqueued_at)))
+            trace.record("coalescer.queue_wait", req.enqueued_at, cut,
+                         client=req.client_id, request_id=req.request_id, lanes=len(req),
+                         dispatch_id=0 if req.failure else dispatch_id,
+                         linger_ms=linger * 1e3)
         if not live:
             return
-        with self._lock:
-            self._dispatch_seq += 1
-            dispatch_id = self._dispatch_seq
+        clients = len({req.client_id for req in live})
+        with trace.span("coalescer.dispatch", dispatch_id=dispatch_id,
+                        lanes=sum(len(req) for req in live), requests=len(live),
+                        clients=clients):
+            self._verify_joint(curve, live, dispatch_id, clients)
+
+    def _verify_joint(self, curve: str, live: List[PendingRequest], dispatch_id: int,
+                      clients: int) -> None:
+        """One engine call over the joined columns of ``live``, then each
+        request's slice of the mask and its tally, and its wake-up."""
         pks, msgs, sigs, powers = [], [], [], []
         for req in live:
             pks += req.pks
             msgs += req.msgs
             sigs += req.sigs
             powers += req.powers
-        clients = len({req.client_id for req in live})
         tally = any(req.tally for req in live)
         t0 = time.perf_counter()
         try:
@@ -397,19 +442,15 @@ class Coalescer:
         m.dispatches.inc(curve=curve)
         m.dispatch_lanes.observe(len(sigs), curve=curve)
         m.dispatch_clients.observe(clients)
-        shards = 0
         if meshed:
             from tmtpu_torch.gpu import mesh_dispatch
 
             snap = mesh_dispatch.snapshot()
-            shards = snap["devices"]
             m.mesh_dispatches.inc(meshed, curve=curve)
             for dev, lanes in snap["occupancy_lanes"].items():
                 m.mesh_occupancy.set(lanes, device=dev)
         with self._lock:
             self._mesh_dispatches += meshed
-        timeline.record_sidecar(role="server", curve=curve, lanes=len(sigs), clients=clients,
-                                requests=len(live), mesh_shards=shards, seconds=round(dt, 6))
         # one mark per distinct trace the dispatch served: a fleet join sees
         # which heights shared this device flush
         traced = [req.trace_ctx for req in live if req.trace_ctx is not None]
@@ -442,4 +483,4 @@ class Coalescer:
             req.dispatch_clients = clients
             req.dispatch_traces = len(traced)
             off += n
-            req.done.set()
+            req.finish()

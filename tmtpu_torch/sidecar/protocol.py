@@ -33,6 +33,7 @@ included.
 from __future__ import annotations
 
 import io
+import time
 from typing import Dict, List, NamedTuple, Tuple, Type
 
 import numpy as np
@@ -207,17 +208,25 @@ def decode_frame(body: bytes) -> ProtoMessage:
 class FrameReader:
     """Reads framed messages from a binary stream, enforcing the frame cap
     before reading the body. EOF mid-frame surfaces as ``EOFError`` (the
-    peer went away), anything else malformed as ``ProtocolError``."""
+    peer went away), anything else malformed as ``ProtocolError``.
+    ``body_s`` holds the ``time.perf_counter()`` readings around the last
+    body's read: from its decoded length prefix to its last byte, never
+    the wait for the frame to begin."""
 
     def __init__(self, stream, max_frame_bytes: int = DEFAULT_MAX_FRAME_BYTES):
         self._rd = DelimitedReader(stream, max_size=max_frame_bytes)
+        self.body_s = (0.0, 0.0)
 
     def read_body(self) -> bytes:
         """One frame's body, undecoded."""
         try:
-            return self._rd.read_msg()
+            n = self._rd.read_size()
         except ValueError as exc:  # oversized frame / runaway varint
             raise ProtocolError(str(exc)) from exc
+        start = time.perf_counter()
+        body = self._rd.read_exact(n)
+        self.body_s = (start, time.perf_counter())
+        return body
 
     def read_msg(self) -> ProtoMessage:
         return decode_frame(self.read_body())

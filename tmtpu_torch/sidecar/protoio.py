@@ -94,9 +94,17 @@ class DelimitedReader:
         self._max = max_size
 
     def read_msg(self) -> bytes:
+        return self.read_exact(self.read_size())
+
+    def read_size(self) -> int:
+        """The next message's length prefix, held to the cap."""
         n = self._read_uvarint()
         if n > self._max:
             raise ValueError(f"message too large: {n}")
+        return n
+
+    def read_exact(self, n: int) -> bytes:
+        """The next ``n`` bytes: a message's body once its prefix is read."""
         data = self._stream.read(n)
         if len(data) != n:
             raise EOFError("truncated message body")

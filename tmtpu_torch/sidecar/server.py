@@ -22,6 +22,17 @@ counted in ``trace_context_rx_total`` or ``trace_context_invalid_total``
 coalescer, which counts it in ``dispatch_traces`` and marks the dispatch
 with it.
 
+Spans of a verify request, on ``time.perf_counter()``, each tagged with
+the Hello's ``client`` and the wire's ``request_id``: ``sidecar.recv``
+(from the frame's decoded length prefix to its last byte, never the wait
+for the frame to begin; ``bytes``), ``sidecar.decode`` (the columnar
+decode; ``lanes``, ``bytes``), ``sidecar.admit`` (the checks, the trace
+context, the submit and the reply thread's start; ``lanes``), the
+coalescer's ``coalescer.queue_wait`` and ``coalescer.dispatch``, then on
+the reply thread ``sidecar.handoff`` (from the dispatcher's wake-up of the
+request to this thread's) and ``sidecar.reply`` (the mask's pack, the
+encode and the send; ``lanes``, ``bytes``).
+
 Health (``health_laddr``, ``host:port``): an HTTP listener serves
 ``/healthz`` (200 or 503, ``{"healthy": ..., **snapshot()}`` as JSON) and
 ``/metrics`` (the daemon's ``sidecar_server_*`` families,
@@ -329,10 +340,11 @@ class SidecarServer:
         rfile = conn.makefile("rb")
         wlock = threading.Lock()
 
-        def send(msg) -> None:
+        def send(msg) -> int:
             data = proto.encode_frame(msg)
             with wlock:
                 conn.sendall(data)
+            return len(data)
 
         def protocol_error(exc) -> None:
             self.metrics.protocol_errors.inc(kind="bad-frame")
@@ -375,9 +387,15 @@ class SidecarServer:
                 try:
                     body = reader.read_body()
                     if body and body[0] == proto.VERIFY_REQUEST_TYPE:
-                        columns = proto.decode_verify_columns(body)
+                        with trace.span("sidecar.decode", bytes=len(body),
+                                        client=client_id) as sp:
+                            columns = proto.decode_verify_columns(body)
+                            sp.set(lanes=len(columns.sigs), request_id=columns.request_id)
+                        tags = {"client": client_id, "request_id": columns.request_id}
+                        trace.record("sidecar.recv", *reader.body_s, bytes=len(body), **tags)
                         requests.inc(type="verify")
-                        self._handle_verify(client_id, columns, send)
+                        with trace.span("sidecar.admit", lanes=len(columns.sigs), **tags):
+                            self._handle_verify(client_id, columns, send)
                         continue
                     msg = proto.decode_frame(body)
                 except proto.ProtocolError as exc:
@@ -402,10 +420,11 @@ class SidecarServer:
 
     def _handle_verify(self, client_id: str, req: proto.VerifyColumns, send) -> None:
         n = len(req.sigs)
+        tags = {"client": client_id, "request_id": req.request_id}
 
-        def reject(status: int, error: str) -> None:
-            send(proto.VerifyResponse(request_id=req.request_id, status=status,
-                                      lane_count=n, error=error))
+        def reject(status: int, error: str) -> int:
+            return send(proto.VerifyResponse(request_id=req.request_id, status=status,
+                                             lane_count=n, error=error))
 
         if self._draining:
             # OVERLOADED, not SHUTTING_DOWN: a node's client falls back
@@ -435,7 +454,7 @@ class SidecarServer:
         try:
             pending = self.coalescer.submit(
                 client_id, req.curve, req.pks, req.msgs, req.sigs, req.powers, req.tally,
-                deadline_s=deadline_s, trace_ctx=trace_ctx)
+                deadline_s=deadline_s, trace_ctx=trace_ctx, request_id=req.request_id)
         except Overloaded as exc:
             reject(proto.STATUS_OVERLOADED, str(exc))
             return
@@ -443,23 +462,29 @@ class SidecarServer:
         def finish() -> None:
             # grace over the deadline: the coalescer answers expiry itself;
             # this wait only guards a wedged dispatch
+            answered = pending.wait(deadline_s + 5.0)
+            if answered:
+                trace.record("sidecar.handoff", pending.done_at, time.perf_counter(), **tags)
             try:
-                if not pending.wait(deadline_s + 5.0):
-                    reject(proto.STATUS_BACKEND_DOWN, "dispatch wedged past deadline")
-                elif pending.mask is None:
-                    reject(_FAILURE_STATUS.get(pending.failure, proto.STATUS_BACKEND_DOWN),
-                           pending.error or "verify failed")
-                else:
-                    send(proto.VerifyResponse(
-                        request_id=req.request_id,
-                        status=proto.STATUS_OK,
-                        mask=proto.pack_mask(pending.mask),
-                        lane_count=len(pending.mask),
-                        tallied=pending.tallied,
-                        dispatch_id=pending.dispatch_id,
-                        dispatch_lanes=pending.dispatch_lanes,
-                        dispatch_clients=pending.dispatch_clients,
-                        dispatch_traces=pending.dispatch_traces))
+                with trace.span("sidecar.reply", lanes=n, **tags) as sp:
+                    if not answered:
+                        sent = reject(proto.STATUS_BACKEND_DOWN, "dispatch wedged past deadline")
+                    elif pending.mask is None:
+                        sent = reject(
+                            _FAILURE_STATUS.get(pending.failure, proto.STATUS_BACKEND_DOWN),
+                            pending.error or "verify failed")
+                    else:
+                        sent = send(proto.VerifyResponse(
+                            request_id=req.request_id,
+                            status=proto.STATUS_OK,
+                            mask=proto.pack_mask(pending.mask),
+                            lane_count=len(pending.mask),
+                            tallied=pending.tallied,
+                            dispatch_id=pending.dispatch_id,
+                            dispatch_lanes=pending.dispatch_lanes,
+                            dispatch_clients=pending.dispatch_clients,
+                            dispatch_traces=pending.dispatch_traces))
+                    sp.set(bytes=sent)
             except OSError:
                 pass  # the client is gone; the dispatch already happened
 
