@@ -141,7 +141,7 @@ def test_each_request_records_its_path(daemon_run, name):
     body = len(proto.FrameReader(io.BytesIO(_frame(name))).read_body())
     assert mine["sidecar.recv"].attrs["bytes"] == body
     assert mine["sidecar.decode"].attrs == {"bytes": body, "client": name, "lanes": lanes,
-                                            "request_id": REQUEST_IDS[name]}
+                                            "request_id": REQUEST_IDS[name], "walk": "native"}
     assert mine["sidecar.admit"].attrs["lanes"] == lanes
     assert mine["sidecar.reply"].attrs["lanes"] == lanes
     assert mine["sidecar.reply"].attrs["bytes"] == len(proto.encode_frame(reply))

@@ -6,9 +6,15 @@ same outcome on both sides and only ProtocolError / EOFError raised, and
 the columnar VerifyRequest path (``decode_verify_columns``,
 ``encode_verify_frame``) against the generic codec on seeded random
 requests whose Lane fields come shuffled, repeated, missing and mixed with
-unknown ones."""
+unknown ones. Every columnar case runs twice, under the C walk of the
+frame (``native.walk_verify``) and under the plain Python walk alone, and
+each result is held against the Python walk's own: the same columns, or
+the same ProtocolError message."""
 
 import io
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -148,16 +154,56 @@ def _outcome(module, blob, max_frame_bytes=4096, reads=4):
     return got
 
 
+# the C walk's columns, kept whichever walk a case runs
+_c_walk = proto._native_columns
+
+
+@pytest.fixture(params=["native", "python"])
+def walk(request, monkeypatch):
+    """Which walk reads the columnar cases: the C walk (deferring to the
+    Python walk where it must, as the daemon runs it), or the plain Python
+    walk alone."""
+    if request.param == "python":
+        monkeypatch.setattr(proto, "_native_columns", lambda body: None)
+    return request.param
+
+
+def _python_walk(body):
+    """The plain Python walk's outcome: its columns, or the message of the
+    ProtocolError it raises."""
+    try:
+        return proto._walk_verify_request(body, 1)
+    except (EOFError, ValueError, UnicodeDecodeError) as exc:
+        return f"malformed VerifyRequest payload: {exc}"
+
+
+def _columnar(body):
+    """``decode_verify_walk``'s outcome: (columns or the ProtocolError's
+    message, the walk that read the body)."""
+    try:
+        return proto.decode_verify_walk(body)
+    except proto.ProtocolError as exc:
+        return str(exc), "python"
+
+
 def _verify_body_agrees(body):
     """On a frame body of type VerifyRequest, the columnar decode gives
-    the generic decode's columns, or both raise ProtocolError."""
+    the generic decode's columns, or both raise ProtocolError; either way
+    exactly what the Python walk gives, and the C walk returns columns
+    only where the Python walk does (else it defers)."""
+    want_py = _python_walk(body)
+    got, used = _columnar(body)
+    assert got == want_py
+    native_cols = _c_walk(body)
+    assert native_cols is None or native_cols == want_py
+    engaged = native_cols is not None and proto._native_columns is _c_walk
+    assert used == ("native" if engaged else "python")
     try:
         want = proto.columns_of(proto.decode_frame(body))
     except proto.ProtocolError:
-        with pytest.raises(proto.ProtocolError):
-            proto.decode_verify_columns(body)
+        assert isinstance(got, str)
         return False
-    assert proto.decode_verify_columns(body) == want
+    assert got == want
     return True
 
 
@@ -170,7 +216,7 @@ def _prefix_len(frame):
     return next(i for i, b in enumerate(frame) if b < 0x80) + 1
 
 
-def test_fuzz_random_byte_soup():
+def test_fuzz_random_byte_soup(walk):
     rng = np.random.default_rng(20260806)
     blobs = [b"", b"\x00", b"\xff" * 16, b"\x02\x03\x2a"]
     for _ in range(300):
@@ -181,8 +227,12 @@ def test_fuzz_random_byte_soup():
             _verify_body_agrees(blob)
 
 
-@pytest.mark.parametrize("name", ["VerifyRequest", "VerifyResponse", "Hello", "ErrorReply"])
-def test_fuzz_bit_flips_in_valid_frames(name):
+@pytest.mark.parametrize(("name", "walk"), [
+    ("VerifyRequest", "native"), ("VerifyRequest", "python"),
+    ("VerifyResponse", "native"), ("Hello", "native"), ("ErrorReply", "native"),
+], ids=["VerifyRequest-native", "VerifyRequest-python", "VerifyResponse", "Hello", "ErrorReply"],
+    indirect=["walk"])
+def test_fuzz_bit_flips_in_valid_frames(name, walk):
     rng = np.random.default_rng(7)
     frame = bytearray(_frames()[name])
     for _ in range(120):
@@ -194,7 +244,7 @@ def test_fuzz_bit_flips_in_valid_frames(name):
             _verify_body_agrees(body)
 
 
-def test_truncated_frames_raise_cleanly():
+def test_truncated_frames_raise_cleanly(walk):
     frame = _frames()["VerifyRequest"]
     for cut in range(len(frame)):
         got = _outcome(proto, frame[:cut], reads=1)
@@ -277,13 +327,14 @@ def _random_request(rng, n_lanes):
 
 
 @pytest.mark.parametrize("seed", range(6))
-def test_columnar_decode_equals_generic_on_random_requests(seed):
+def test_columnar_decode_equals_generic_on_random_requests(seed, walk):
     rng = np.random.default_rng(1000 + seed)
-    decoded = 0
+    decoded = native = 0
     for _ in range(60):
         body = _random_request(rng, int(rng.integers(0, 12)))
         if _verify_body_agrees(body):
             decoded += 1
+            native += proto.decode_verify_walk(body)[1] == "native"
             # and the reference's generic decode reads the same
             want = ref.decode_frame(body)
             got = proto.decode_verify_columns(body)
@@ -298,10 +349,12 @@ def test_columnar_decode_equals_generic_on_random_requests(seed):
             pos = int(rng.integers(1, len(body)))
             _verify_body_agrees(body[:pos] + bytes([int(rng.integers(0, 256))]) + body[pos + 1:])
     assert decoded >= 40
+    # the C walk defers only on repeated curves with a non-ASCII earlier one
+    assert native >= (decoded * 3) // 4 if walk == "native" else native == 0
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_encode_verify_frame_equals_generic(seed):
+def test_encode_verify_frame_equals_generic(seed, walk):
     rng = np.random.default_rng(2000 + seed)
     for _ in range(40):
         n = int(rng.integers(0, 10))
@@ -319,8 +372,8 @@ def test_encode_verify_frame_equals_generic(seed):
                  for a, b, c, d in zip(pks, msgs, sigs, powers)]
         assert frame == ref.encode_frame(ref.VerifyRequest(lanes=lanes, trace_ctx=ctx, **head))
         body = proto.FrameReader(io.BytesIO(frame), max_frame_bytes=1 << 24).read_body()
-        assert proto.decode_verify_columns(body) == proto.VerifyColumns(
-            *head.values(), ctx, pks, msgs, sigs, powers)
+        assert proto.decode_verify_walk(body) == (proto.VerifyColumns(
+            *head.values(), ctx, pks, msgs, sigs, powers), walk)
 
 
 def _lane_of(body):
@@ -341,10 +394,99 @@ def _lane_of(body):
     b"\x0a\x02pk\x0a\x01k\x20\x05\x20\x06",  # repeats: the last one wins
 ], ids=["tag", "fixed64 tag", "key length", "key", "power", "unknown varint", "unknown length",
         "fixed64 past", "fixed32 past", "wire type 3", "repeats"])
-def test_columnar_decode_stays_within_each_lane(lane_body):
+def test_columnar_decode_stays_within_each_lane(lane_body, walk):
     """Each lane is read within its own length, as the generic decode
     reads its sub-message: whatever follows the lane in the frame (here a
     second lane and a request id) never completes a field cut at its end."""
     body = (bytes([proto.VERIFY_REQUEST_TYPE]) + _lane_of(lane_body)
             + _lane_of(b"\x0a\x01x\x20\x07") + tag(1, 0) + encode_uvarint(9))
     _verify_body_agrees(body)
+
+
+# --- the C walk against the Python walk ---------------------------------------
+
+
+def test_c_walk_equals_python_walk_on_10000_lanes():
+    """A 10,000-lane body at the wire's edges: powers at the int64 bounds
+    and either side of one varint byte, messages either side of one and
+    two length bytes, keys of one width and of mixed widths, empty ones
+    among them."""
+    rng = np.random.default_rng(15)
+    n = 10_000
+    edge_powers = [0, 127, 128, 2**63 - 1, -1, -(2**63)]
+    powers = [edge_powers[i % 6] if i % 3 else int(rng.integers(1, 10**12)) for i in range(n)]
+    msgs = [rng.bytes([127, 128, 16_384, 110, 0][i % 5] if i % 7 else int(rng.integers(0, 300)))
+            for i in range(n)]
+    for pk_widths in ([32], [32, 33, 0]):
+        pks = [rng.bytes(pk_widths[i % len(pk_widths)]) for i in range(n)]
+        sigs = [rng.bytes(64) for _ in range(n)]
+        frame = proto.encode_verify_frame(2**63 + 5, "ed25519", True, 900, pks, msgs, sigs,
+                                          powers, trace_ctx=b"\x01" * 19)
+        body = proto.FrameReader(io.BytesIO(frame), max_frame_bytes=1 << 26).read_body()
+        got, used = proto.decode_verify_walk(body)
+        assert used == "native"
+        want = proto._walk_verify_request(body, 1)
+        for field in proto.VerifyColumns._fields:
+            assert getattr(got, field) == getattr(want, field), field
+        assert got == proto.VerifyColumns(2**63 + 5, "ed25519", True, 900, b"\x01" * 19,
+                                          pks, msgs, sigs, powers)
+        assert all(type(v) is bytes for col in (got.pks, got.msgs, got.sigs) for v in col)
+
+
+_BIG = encode_uvarint(2**64 + 3)  # 10 bytes, over 64 bits
+_LANE = _lane_of(b"\x0a\x02pk\x12\x03msg\x1a\x03sig\x20\x05")
+
+
+@pytest.mark.parametrize("body", [
+    tag(1, 0) + _BIG + _LANE,
+    _LANE + _lane_of(b"\x20" + _BIG),
+    _LANE + _lane_of(b"\x20" + encode_uvarint(2**64 - 1)),
+    _LANE + _lane_of(b"\x0a\x01k" + tag(9, 0) + _BIG),
+    tag(4, 0) + b"\x80" * 10 + b"\x00" + _LANE,
+    tag(2, 2) + b"\x02\xff\xfe" + _LANE,
+    tag(2, 2) + b"\x02\xc3\xa9" + tag(2, 2) + b"\x07ed25519" + _LANE,
+    tag(2, 2) + b"\x02\xff\xfe" + tag(2, 2) + b"\x07ed25519" + _LANE,
+    _LANE + tag(9, 3) + b"\x00",
+    _LANE + _lane_of(b"\x0b\x01"),
+    _LANE + _lane_of(b"\x0c"),
+    tag(7, 6) + _LANE,
+], ids=["request_id over 2^64", "power over 2^64", "power 2^64-1 wraps", "unknown over 2^64",
+        "deadline of 11 bytes", "curve not utf-8", "curve repeated, non-ascii first",
+        "curve repeated, not utf-8 first", "wire type 3", "lane wire type 3",
+        "lane wire type 4", "wire type 6"])
+def test_bodies_the_c_walk_defers(body):
+    """Bodies the C walk does not take: the decode gives the Python walk's
+    columns or its exact ProtocolError. A power of 2^64 - 1 fits the C
+    walk's 64 bits, and it reads -1 as the Python walk does."""
+    body = bytes([proto.VERIFY_REQUEST_TYPE]) + body
+    fits = body.endswith(_lane_of(b"\x20" + encode_uvarint(2**64 - 1)))
+    assert (_c_walk(body) is not None) == fits
+    _verify_body_agrees(body)
+    if fits:
+        assert proto.decode_verify_columns(body).powers == [5, -1]
+
+
+def test_every_cut_of_a_full_body():
+    """A body with every top-level field and lane field, cut at every byte:
+    the C walk takes a cut only where the Python walk decodes it, and the
+    decode gives the Python walk's columns or its exact error."""
+    lanes = [(bytes(range(32)), bytes(range(130)), bytes(range(64)), -7),
+             (b"\x05" * 32, b"", b"\x06" * 64, 2**62)]
+    frame = proto.encode_verify_frame(300, "sr25519", True, 1500, *zip(*lanes),
+                                      trace_ctx=b"\x01" * 19)
+    body = proto.FrameReader(io.BytesIO(frame)).read_body()
+    taken = 0
+    for cut in range(1, len(body) + 1):
+        _verify_body_agrees(body[:cut])
+        taken += _c_walk(body[:cut]) is not None
+    assert taken >= 4  # the whole body and the cuts at its top-level field ends
+
+
+def test_encoding_needs_no_c_build():
+    """Importing the codec and encoding a frame load nothing of the C host
+    prep: a client process needs no C compiler."""
+    code = ("import sys; from tmtpu_torch.sidecar import protocol as p; "
+            "p.encode_verify_frame(1, 'ed25519', True, 0, [b'k'], [b'm'], [b's'], [1]); "
+            "assert 'tmtpu_torch.native' not in sys.modules, 'native loaded'")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True)

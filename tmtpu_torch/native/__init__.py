@@ -13,6 +13,9 @@ device-path entries, and the signature cache's store:
   keys (``sigcache.cache_key`` of every lane), looks them up in a store
   and folds the flush's repeated misses onto their first lane in one
   call; ``cache_keys`` is its key pass alone;
+- ``walk_verify``: where each field of a sidecar VerifyRequest frame lies
+  (``sidecar/protocol.py::decode_verify_columns``), or None where the
+  frame needs the Python walk;
 - ``reduce_mod_l_for_tests``: the prep's reduction mod L alone, which the
   tests hold against Python's ``int % L``.
 
@@ -67,6 +70,8 @@ _SIGNATURES = {
     "tmtpu_cache_add": ([_P, ctypes.c_size_t, _P, _P], ctypes.c_int64),
     # n, in (n rows of 64 bytes), out (n rows of 32 bytes); the tests' entry
     "tmtpu_reduce_mod_l": [ctypes.c_size_t, _P, _P],
+    # body, len, cap, out [cap + 1, 7] -> lanes, -1 to defer to the Python walk
+    "tmtpu_walk_verify": ([_P, ctypes.c_size_t, ctypes.c_int64, _P], ctypes.c_int64),
 }
 
 _lock = threading.Lock()
@@ -225,6 +230,25 @@ def resolve(store, types, pks, msgs, sigs, nthreads=None):
     if hits < 0:
         raise MemoryError("the signature cache's resolve is out of memory")
     return keys, rep
+
+
+def walk_verify(body):
+    """The C walk of a VerifyRequest frame body (type byte 3 + payload, any
+    contiguous bytes-like):
+    [B + 1, 7] int64, row i lane i's pub_key, msg and sig as [lo, hi)
+    offsets into ``body`` and its power, row B (as uint64) the request_id,
+    curve's [lo, hi), tally, deadline_ms and trace_ctx's [lo, hi); or None
+    where the frame holds what only the Python walk takes (a cut field, an
+    unsupported wire type, a varint over 64 bits, an earlier non-ASCII
+    curve)."""
+    lib = load()
+    buf = np.frombuffer(body, dtype=np.uint8)
+    ptr = buf.ctypes.data
+    n = lib.tmtpu_walk_verify(ptr, len(buf), 0, None)
+    if n < 0:
+        return None
+    out = np.empty((n + 1, 7), dtype=np.int64)
+    return out if lib.tmtpu_walk_verify(ptr, len(buf), n, out.ctypes.data) == n else None
 
 
 def sha256_ni(allow=None) -> bool:

@@ -15,7 +15,8 @@
  * computes a flush's keys (SHA-256 of the length-prefixed (curve, pk,
  * msg, sig), byte-identical to crypto/sigcache.py's ``cache_key``) on
  * threads, looks each up and folds the flush's repeated misses onto their
- * first index, in one pass.
+ * first index, in one pass. Beside them, tmtpu_walk_verify, the sidecar's
+ * walk of a VerifyRequest frame, which records where each field lies.
  *
  * Every prep output and key is a function of its lane's inputs alone, so
  * the bytes do not depend on the thread count. Pure C99 and POSIX threads;
@@ -925,4 +926,130 @@ int64_t tmtpu_cache_resolve(void *h, size_t n, const uint8_t *types, const uint6
     }
     free(slot);
     return hits;
+}
+
+/* ------------------------------------------------------------------ */
+/* The sidecar's VerifyRequest walk.                                   */
+
+/* sidecar/protocol.py's _walk_verify_request in C, recording where each
+ * field lies. The rules are the Python walk's: a known field is read by
+ * its declared type whatever its wire type, the last of a repeated field
+ * wins, unknown fields are skipped by wire type (a fixed64, fixed32 or
+ * length skip that runs past the end just ends the loop), and a lane is
+ * read within its own length. Every read is checked against the lane's or
+ * the body's end: the frame comes from the network. Whatever the walk does
+ * not take (a cut field, wire type 3, 4, 6 or 7, a varint over 64 bits, a
+ * curve before the last one holding a non-ASCII byte, which Python would
+ * decode as UTF-8) returns WV_DEFER, and the caller runs the Python walk
+ * on the same body for its result or its exact error. */
+
+#define WV_DEFER (-1)
+
+/* A uvarint from [*pos, end) that fits in 64 bits, else WV_DEFER. */
+static int wv_uvarint(const uint8_t *b, size_t *pos, size_t end, uint64_t *out) {
+    size_t p = *pos;
+    uint64_t v = 0;
+    for (int shift = 0; shift < 64; shift += 7) {
+        if (p >= end) return WV_DEFER;
+        uint8_t c = b[p++];
+        if (shift == 63 && c > 1) return WV_DEFER;
+        v |= (uint64_t)(c & 0x7f) << shift;
+        if (!(c & 0x80)) {
+            *pos = p;
+            *out = v;
+            return 0;
+        }
+    }
+    return WV_DEFER;
+}
+
+/* Skip one field of wire type wt; a skip past end stops at end. */
+static int wv_skip(const uint8_t *b, size_t *pos, size_t end, uint64_t wt) {
+    uint64_t n;
+    if (wt == 0) return wv_uvarint(b, pos, end, &n);
+    if (wt == 1) n = 8;
+    else if (wt == 5) n = 4;
+    else if (wt == 2) {
+        if (wv_uvarint(b, pos, end, &n)) return WV_DEFER;
+    } else return WV_DEFER;
+    *pos = n < end - *pos ? *pos + n : end;
+    return 0;
+}
+
+/* A length-delimited field's value at *pos: its [lo, hi) in the body. */
+static int wv_bytes(const uint8_t *b, size_t *pos, size_t end, int64_t *lo, int64_t *hi) {
+    uint64_t n;
+    if (wv_uvarint(b, pos, end, &n) || n > end - *pos) return WV_DEFER;
+    *lo = (int64_t)*pos;
+    *hi = (int64_t)(*pos + n);
+    *pos += n;
+    return 0;
+}
+
+/* One Lane in [pos, end): the [lo, hi) of its pub_key, msg and sig in
+ * span[0..5] (0, 0 when absent) and its power as int64. */
+static int wv_lane(const uint8_t *b, size_t pos, size_t end, int64_t span[6], int64_t *power) {
+    memset(span, 0, 6 * sizeof *span);
+    *power = 0;
+    while (pos < end) {
+        uint64_t k, v;
+        if (wv_uvarint(b, &pos, end, &k)) return WV_DEFER;
+        uint64_t f = k >> 3;
+        if (f >= 1 && f <= 3) {
+            if (wv_bytes(b, &pos, end, &span[2 * (f - 1)], &span[2 * (f - 1) + 1]))
+                return WV_DEFER;
+        } else if (f == 4) {
+            if (wv_uvarint(b, &pos, end, &v)) return WV_DEFER;
+            *power = (int64_t)v;
+        } else if (wv_skip(b, &pos, end, k & 7)) {
+            return WV_DEFER;
+        }
+    }
+    return 0;
+}
+
+/* Walk the VerifyRequest payload body[1:len): returns its lane count, or
+ * WV_DEFER. With out NULL it only counts (the lanes' insides unread);
+ * otherwise out holds cap + 1 rows of 7 int64: lane i's pub_key, msg and
+ * sig as [lo, hi) and its power in row i, and in row cap (as uint64) the
+ * request_id, curve's [lo, hi), tally, deadline_ms and trace_ctx's [lo, hi). */
+int64_t tmtpu_walk_verify(const uint8_t *b, size_t len, int64_t cap, int64_t *out) {
+    size_t pos = 1, end = len;
+    int64_t lanes = 0, curve[2] = {0, 0}, ctx[2] = {0, 0};
+    uint64_t request_id = 0, tally = 0, deadline_ms = 0;
+    while (pos < end) {
+        uint64_t key, n;
+        if (wv_uvarint(b, &pos, end, &key)) return WV_DEFER;
+        uint64_t fn = key >> 3;
+        if (fn == 5) {
+            if (wv_uvarint(b, &pos, end, &n) || n > end - pos) return WV_DEFER;
+            if (out) {
+                int64_t *row = out + 7 * lanes;
+                if (lanes >= cap || wv_lane(b, pos, pos + n, row, row + 6)) return WV_DEFER;
+            }
+            lanes++;
+            pos += n;
+        } else if (fn == 1) {
+            if (wv_uvarint(b, &pos, end, &request_id)) return WV_DEFER;
+        } else if (fn == 2) {
+            for (int64_t i = curve[0]; i < curve[1]; i++)
+                if (b[i] & 0x80) return WV_DEFER;
+            if (wv_bytes(b, &pos, end, &curve[0], &curve[1])) return WV_DEFER;
+        } else if (fn == 6) {
+            if (wv_bytes(b, &pos, end, &ctx[0], &ctx[1])) return WV_DEFER;
+        } else if (fn == 3) {
+            if (wv_uvarint(b, &pos, end, &n)) return WV_DEFER;
+            tally = n != 0;
+        } else if (fn == 4) {
+            if (wv_uvarint(b, &pos, end, &deadline_ms)) return WV_DEFER;
+        } else if (wv_skip(b, &pos, end, key & 7)) {
+            return WV_DEFER;
+        }
+    }
+    if (out) {
+        uint64_t top[7] = {request_id, (uint64_t)curve[0], (uint64_t)curve[1], tally,
+                           deadline_ms, (uint64_t)ctx[0], (uint64_t)ctx[1]};
+        memcpy(out + 7 * cap, top, sizeof top);
+    }
+    return lanes;
 }

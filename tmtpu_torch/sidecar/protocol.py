@@ -27,7 +27,12 @@ and the port's client take a columnar path for the one large message:
 (keys, messages, signatures, powers) with no ``Lane`` objects, and
 ``encode_verify_frame`` writes the same bytes as ``encode_frame`` from
 those lists. Both give exactly what the generic codec gives, errors
-included.
+included. The walk of a body is C (``native.walk_verify``, which records
+where each field lies; Python cuts the columns out of the body); a body
+holding anything the C walk does not take goes through the Python walk
+(``_walk_verify_request``), which stays as the plain version. The C build
+is loaded at the first decode, so a client that only encodes needs no C
+compiler.
 """
 
 from __future__ import annotations
@@ -410,15 +415,43 @@ def _walk_verify_request(buf: bytes, pos: int) -> VerifyColumns:
                          pks, msgs, sigs, powers)
 
 
+def _native_columns(body: bytes):
+    """The columns by the C walk (``native.walk_verify``), or None where the
+    body needs the Python walk."""
+    from tmtpu_torch import native  # the C build only where a body is decoded
+
+    out = native.walk_verify(body)
+    if out is None:
+        return None
+    request_id, c_lo, c_hi, tally, deadline_ms, t_lo, t_hi = out[-1].view(np.uint64).tolist()
+    try:
+        curve = body[c_lo:c_hi].decode("utf-8")
+    except UnicodeDecodeError:
+        return None
+    lanes = out[:-1].T.tolist()
+    pks, msgs, sigs = ([body[a:b] for a, b in zip(lanes[i], lanes[i + 1])] for i in (0, 2, 4))
+    return VerifyColumns(request_id, curve, bool(tally), deadline_ms, body[t_lo:t_hi],
+                         pks, msgs, sigs, lanes[6])
+
+
+def decode_verify_walk(body: bytes) -> Tuple[VerifyColumns, str]:
+    """``decode_verify_columns``, and which walk read the body: "native"
+    (the C walk) or "python" (a body the C walk does not take)."""
+    if not body or body[0] != VERIFY_REQUEST_TYPE:
+        raise ProtocolError("not a VerifyRequest frame")
+    columns = _native_columns(body)
+    if columns is not None:
+        return columns, "native"
+    try:
+        return _walk_verify_request(body, 1), "python"
+    except (EOFError, ValueError, UnicodeDecodeError) as exc:
+        raise ProtocolError(f"malformed VerifyRequest payload: {exc}") from exc
+
+
 def decode_verify_columns(body: bytes) -> VerifyColumns:
     """A VerifyRequest frame body (type byte 3 + payload) as columns: the
     same fields, lanes and errors as ``decode_frame`` gives."""
-    if not body or body[0] != VERIFY_REQUEST_TYPE:
-        raise ProtocolError("not a VerifyRequest frame")
-    try:
-        return _walk_verify_request(body, 1)
-    except (EOFError, ValueError, UnicodeDecodeError) as exc:
-        raise ProtocolError(f"malformed VerifyRequest payload: {exc}") from exc
+    return decode_verify_walk(body)[0]
 
 
 def columns_of(req: VerifyRequest) -> VerifyColumns:

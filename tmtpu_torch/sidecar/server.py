@@ -26,7 +26,8 @@ Spans of a verify request, on ``time.perf_counter()``, each tagged with
 the Hello's ``client`` and the wire's ``request_id``: ``sidecar.recv``
 (from the frame's decoded length prefix to its last byte, never the wait
 for the frame to begin; ``bytes``), ``sidecar.decode`` (the columnar
-decode; ``lanes``, ``bytes``), ``sidecar.admit`` (the checks, the trace
+decode; ``lanes``, ``bytes``, ``walk``: "native" for the C walk of the
+frame, "python" for the plain one), ``sidecar.admit`` (the checks, the trace
 context, the submit and the reply thread's start; ``lanes``), the
 coalescer's ``coalescer.queue_wait`` and ``coalescer.dispatch``, then on
 the reply thread ``sidecar.handoff`` (from the dispatcher's wake-up of the
@@ -389,8 +390,9 @@ class SidecarServer:
                     if body and body[0] == proto.VERIFY_REQUEST_TYPE:
                         with trace.span("sidecar.decode", bytes=len(body),
                                         client=client_id) as sp:
-                            columns = proto.decode_verify_columns(body)
-                            sp.set(lanes=len(columns.sigs), request_id=columns.request_id)
+                            columns, walk = proto.decode_verify_walk(body)
+                            sp.set(lanes=len(columns.sigs), request_id=columns.request_id,
+                                   walk=walk)
                         tags = {"client": client_id, "request_id": columns.request_id}
                         trace.record("sidecar.recv", *reader.body_s, bytes=len(body), **tags)
                         requests.inc(type="verify")
