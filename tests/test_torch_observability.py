@@ -71,6 +71,13 @@ PORT_ONLY = {
     "sidecar.recv": _DAEMON, "sidecar.decode": _DAEMON, "sidecar.admit": _DAEMON,
     "sidecar.handoff": _DAEMON, "sidecar.reply": _DAEMON,
     "coalescer.queue_wait": _DAEMON, "coalescer.dispatch": _DAEMON,
+    "secp256k1.device_put": "the plane's copy to the device, which the reference's "
+                            "secp256k1.execute holds (tmtpu/tpu/k1_verify.py:476); the port "
+                            "times it apart, as on the ed25519 path",
+    "secp256k1.readback": "the mask's copy back, which the reference's secp256k1.execute "
+                          "holds; the port times it apart, as on the ed25519 path",
+    "crypto.host_tally": "the host's sum of the valid lanes' powers of a curve the device "
+                         "does not tally, which the reference sums under no span",
 }
 
 # the reference's crypto families the port does not register, each with its reason
@@ -227,10 +234,15 @@ def test_mixed_flush_records_one_execute_a_curve(flushes):
                     ("ed25519.execute", "crypto.batch_verify_tally", None),
                     ("ed25519.readback", "crypto.batch_verify_tally", None),
                     ("sr25519.prepare", None, 8), ("sr25519.execute", None, 8),
-                    ("secp256k1.prepare", None, 8), ("secp256k1.execute", None, 8),
+                    ("crypto.host_tally", None, 8),
+                    ("secp256k1.prepare", None, 8), ("secp256k1.device_put", None, 8),
+                    ("secp256k1.execute", None, 8), ("secp256k1.readback", None, 8),
+                    ("crypto.host_tally", None, 8),
                     ("crypto.pack_words", None, 24)]
     assert [sp.attrs for sp in spans if sp.name in ("sr25519.execute", "secp256k1.execute")] == [
         {"impl": "torch", "lanes": 8}] * 2
+    assert [sp.attrs for sp in spans if sp.name == "crypto.host_tally"] == [
+        {"curve": "sr25519", "lanes": 8}, {"curve": "secp256k1", "lanes": 8}]
 
 
 def test_mesh_flush_spans(flushes):

@@ -30,9 +30,11 @@ records its span tree and one ``observe_crypto_batch``; a verifier's
 device, once resolved, sets ``crypto_tpu_backend_up``. Spans the reference
 does not record: ``sigcache.resolve`` (the cache's C call and the
 bookkeeping that picks the lanes to dispatch; ``lanes``, ``hits``),
-``sigcache.insert`` (the successes added; ``lanes``) and
+``sigcache.insert`` (the successes added; ``lanes``),
 ``crypto.pack_words`` (``verify_tally``'s bit pack on the device and its
-readback; ``lanes``).
+readback; ``lanes``) and ``crypto.host_tally`` (the power of a curve's
+valid lanes summed on the host, for a curve the device does not tally;
+``curve``, ``lanes``).
 """
 
 from __future__ import annotations
@@ -235,7 +237,9 @@ class TorchBatchVerifier(BatchVerifier):
                                  SR25519: sr_verify.batch_verify_sr,
                                  SECP256K1: k1_verify.batch_verify_k1}[kind]
                     m = verify_fn(sub.pks, sub.msgs, sub.sigs, device=self.device)
-                tallied += sum(itertools.compress(sub.powers, m.tolist()))
+                if tally:
+                    with trace.span("crypto.host_tally", curve=kind, lanes=len(sub)):
+                        tallied += sum(itertools.compress(sub.powers, m.tolist()))
             mask[idx] = m
         return mask.tolist(), tallied
 

@@ -341,11 +341,13 @@ def batch_verify_k1(pks, msgs, sigs, device=None) -> np.ndarray:
     t0 = time.perf_counter()
     with trace.span("secp256k1.prepare", lanes=B):
         packed, host_ok = prepare_k1_batch_packed(pks, msgs, sigs)
-    # as in the reference, execute holds the copies as well as the kernel
-    with trace.span("secp256k1.execute", impl=impl, lanes=B) as ex:
+    # the reference's execute holds the copies too; here each has its own
+    # span, as on the ed25519 path
+    with trace.span("secp256k1.device_put", lanes=B):
         plane = torch.from_numpy(packed).to(dev)
-        with spans.device_time(ex, dev):
-            mask = k1_kernel.verify_packed(plane)
+    with trace.span("secp256k1.execute", impl=impl, lanes=B) as ex, spans.device_time(ex, dev):
+        mask = k1_kernel.verify_packed(plane)
+    with trace.span("secp256k1.readback", lanes=B):
         mask = mask.cpu().numpy()
     metrics.observe_crypto_batch("secp256k1", metrics.backend_label(dev), impl, B, 0,
                                  time.perf_counter() - t0)
