@@ -1667,15 +1667,15 @@ def main() -> int:
     for kind in CURVE_ORDER:
         args = args_of(kind)
         parts[kind] = time_host(lambda: CURVES[kind].prep(*args), 3)
-    sr_args = args_of(crypto_batch.SR25519)
-    sr_plain_ms = time_host(lambda: sv.prepare_sr_batch_packed_plain(*sr_args), 3)
-    c_prep, py_prep = (sv.prepare_sr_batch_packed(*sr_args),
-                       sv.prepare_sr_batch_packed_plain(*sr_args))
-    check(np.array_equal(c_prep[0], py_prep[0]) and np.array_equal(c_prep[1], py_prep[1]),
-          f"sr25519 C prep == Python prep on {counts['sr25519']} lanes")
-    print(f"sr25519 host prep: C {parts[crypto_batch.SR25519]:.3f} ms, Python "
-          f"{sr_plain_ms:.3f} ms (equal bytes on {counts['sr25519']} lanes), medians of 3 "
-          f"[{card}]")
+    for kind, plain in ((crypto_batch.SR25519, sv.prepare_sr_batch_packed_plain),
+                        (crypto_batch.SECP256K1, kv.prepare_k1_batch_packed_plain)):
+        kind_args = args_of(kind)
+        plain_ms = time_host(lambda: plain(*kind_args), 3)
+        c_prep, py_prep = CURVES[kind].prep(*kind_args), plain(*kind_args)
+        check(np.array_equal(c_prep[0], py_prep[0]) and np.array_equal(c_prep[1], py_prep[1]),
+              f"{kind} C prep == Python prep on {counts[kind]} lanes")
+        print(f"{kind} host prep: C {parts[kind]:.3f} ms, Python {plain_ms:.3f} ms "
+              f"(equal bytes on {counts[kind]} lanes), medians of 3 [{card}]")
     # the ed25519 kernel against plain at the mixed path's width
     ed_np, ed_ok = tv.prepare_batch_packed(*args_of(crypto_batch.ED25519))
     ed_path_packed = torch.from_numpy(ed_np).cuda()

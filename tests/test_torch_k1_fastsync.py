@@ -205,11 +205,12 @@ def test_daemon_answers_with_the_references_masks_and_tallies(pool, served):
         assert fields["dispatch_lanes"] == 2 * len(entries)
 
 
-def test_daemon_flush_records_the_k1_spans(served):
+def test_daemon_flush_records_the_k1_spans(pool, served):
     """One secp256k1 dispatch: prepare, the plane's copy, the kernel, the
-    mask's copy back and the host tally, each with the dispatch's lanes;
-    the ed25519 flush's span is never opened."""
-    _requests, _bad, _replies, spans = served
+    mask's copy back and the host tally, each with the dispatch's lanes,
+    prepare with the lanes its checks refused; the ed25519 flush's span is
+    never opened."""
+    requests, bad, _replies, spans = served
     names = ("secp256k1.prepare", "secp256k1.device_put", "secp256k1.execute",
              "secp256k1.readback", "crypto.host_tally", "crypto.batch_verify_tally")
     tree = [(sp.name, sp.attrs.get("lanes")) for sp in sorted(spans, key=lambda sp: sp.start_s)
@@ -217,6 +218,12 @@ def test_daemon_flush_records_the_k1_spans(served):
     lanes = 2 * CFG["validators"]
     assert tree == [(name, lanes) for name in names[:5]]
     by_name = {sp.name: sp for sp in spans}
+    lanes_sent = [(pool.pks[pool.validator_of(e)], pool.msgs[e], bad.get(e, pool.sigs[e]))
+                  for entries, _frame in requests for e in entries]
+    _packed, host_ok = k1_verify.prepare_k1_batch_packed_plain(*zip(*lanes_sent))
+    rejected = int((~host_ok).sum())
+    assert rejected >= 3  # the high-S twins
+    assert by_name["secp256k1.prepare"].attrs == {"lanes": lanes, "rejected": rejected}
     assert by_name["crypto.host_tally"].attrs == {"curve": "secp256k1", "lanes": lanes}
     assert by_name["secp256k1.execute"].attrs == {"impl": "torch", "lanes": lanes}
     ends = [by_name[n].start_s + by_name[n].duration_s for n in names[:4]]

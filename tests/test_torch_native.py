@@ -3,10 +3,14 @@ reference package's C host prep (tmtpu/native) and the port's plain Python
 prep (``prepare_batch_packed_plain``, ``prepare_sr_batch_packed_plain``),
 with 1, 3 and 8 threads: empty and one-lane batches, messages of 0-300
 bytes across the SHA-512 padding edges and the STROBE rate, and the
-adversarial corpora of tests/torch_corpus.py. A build that fails raises.
-The reduction mod L alone (``reduce_mod_l_for_tests``) is held against
-Python's ``int % L`` on constructed and random 512-bit values, and its
-Barrett constants and bound are derived from L."""
+adversarial corpora of tests/torch_corpus.py. The secp256k1 prep
+(``prep_k1``) is held against ``prepare_k1_batch_packed_plain`` and the
+reference package's Python prep with 1, 3, 8 and 16 threads. A build
+that fails raises. The reduction mod L alone (``reduce_mod_l_for_tests``)
+is held against Python's ``int % L`` on constructed and random 512-bit
+values, and its Barrett constants and bound are derived from L; the
+arithmetic mod the secp256k1 order (``mod_n_for_tests``) likewise, with
+its fold bound derived from n."""
 
 import hashlib
 import re
@@ -17,11 +21,13 @@ import pytest
 
 from tests import torch_corpus as corpus
 from tmtpu import native as jnative
+from tmtpu.tpu import k1_verify as jkv
 from tmtpu.tpu import sr_verify as jsv
 from tmtpu.tpu import verify as jtv
 from tmtpu_torch import native
 from tmtpu_torch.crypto import ed25519_ref as ref
 from tmtpu_torch.crypto.sr25519 import challenge_k, gen_priv_key_from_secret
+from tmtpu_torch.gpu import k1_verify as kv
 from tmtpu_torch.gpu import sr_verify as sv
 from tmtpu_torch.gpu import verify as tv
 
@@ -161,13 +167,20 @@ def test_failed_compile_raises_with_the_compiler_message(tmp_path):
 
 
 def test_missing_symbol_raises(monkeypatch, tmp_path):
-    stub = tmp_path / "stub.c"
-    stub.write_text("void tmtpu_prep_ed25519(void) {}\n")
-    path = native.build(src=str(stub), out_dir=str(tmp_path))
-    monkeypatch.setattr(native, "build", lambda: path)
-    monkeypatch.setattr(native, "_lib", None)
-    with pytest.raises(AttributeError, match="tmtpu_sr_challenges"):
-        native.load()
+    """A library without the sr25519 entry, or with every entry but the
+    secp256k1 prep, does not load."""
+    stubs = {"tmtpu_sr_challenges": ["tmtpu_prep_ed25519"],
+             "tmtpu_prep_k1": [name for name in native._SIGNATURES if name != "tmtpu_prep_k1"]}
+    paths = {}
+    for missing, names in stubs.items():
+        stub = tmp_path / f"{missing}.c"
+        stub.write_text("".join(f"void {name}(void) {{}}\n" for name in names))
+        paths[missing] = native.build(src=str(stub), out_dir=str(tmp_path))
+    for missing, path in paths.items():
+        monkeypatch.setattr(native, "build", lambda path=path: path)
+        monkeypatch.setattr(native, "_lib", None)
+        with pytest.raises(AttributeError, match=missing):
+            native.load()
 
 
 def test_main_path_prep_has_no_other_version(monkeypatch):
@@ -181,6 +194,8 @@ def test_main_path_prep_has_no_other_version(monkeypatch):
         tv.prepare_batch_packed(*corpus.signed(2, 1))
     with pytest.raises(RuntimeError, match="no host prep library"):
         sv.prepare_sr_batch_packed(*corpus.sr_signed(2, 1))
+    with pytest.raises(RuntimeError, match="no host prep library"):
+        kv.prepare_k1_batch_packed(*corpus.k1_signed(2, 1))
 
 
 def test_library_is_built_from_the_port_source():
@@ -199,6 +214,12 @@ def test_library_name_follows_the_toolchain(monkeypatch):
 
 # ed25519's group order, the modulus of the prep's reduction
 L = 2**252 + 27742317777372353535851937790883648493
+
+
+def _c_int(name):
+    """``#define name <integer>`` of hostprep.c."""
+    with open(native.SRC) as fh:
+        return int(re.search(rf"#define {name} (\d+)", fh.read()).group(1))
 
 
 def _c_constant(name):
@@ -279,3 +300,227 @@ def test_reduce_mod_l_rows_are_checked():
     with pytest.raises(ValueError, match=r"\[n, 64\]"):
         native.reduce_mod_l_for_tests(np.zeros((2, 32), np.uint8))
     assert native.reduce_mod_l_for_tests(np.zeros((0, 64), np.uint8)).shape == (0, 32)
+
+
+# ---------------------------------------------------------------------------
+# secp256k1: the prep against the plain and the reference's Python prep
+
+K1_N = corpus.K1_N
+K1_P = corpus.K1_P
+K1_THREADS = [1, 3, 8, 16]
+
+
+def _k1_random(n, seed, msg_lens=None, twins=True):
+    """n lanes of random well-formed bytes (prefix 2 or 3, r and s in
+    [1, n - 1], s low), every fifth lane the high-S twin R || (n - s) of the
+    lane before it unless ``twins`` is False; messages of random lengths
+    below 200 bytes, or ``msg_lens``."""
+    rng = np.random.default_rng(seed)
+    pks, msgs, sigs = [], [], []
+    for i in range(n):
+        r = int.from_bytes(rng.bytes(32), "big") % (K1_N - 1) + 1
+        s = int.from_bytes(rng.bytes(32), "big") % (K1_N // 2) + 1
+        if twins and i % 5 == 4:
+            r, s = int.from_bytes(sigs[-1][:32], "big"), K1_N - int.from_bytes(sigs[-1][32:], "big")
+        pks.append(bytes([2 + i % 2]) + rng.bytes(32))
+        sigs.append(r.to_bytes(32, "big") + s.to_bytes(32, "big"))
+        msgs.append(rng.bytes(int(rng.integers(200)) if msg_lens is None else msg_lens[i]))
+    return pks, msgs, sigs
+
+
+def _k1_with(lanes, **fields):
+    """One lane of ``lanes`` with its key's prefix or x, or its r or s,
+    replaced (a scalar or x given as an int, written as 32 big-endian
+    bytes; ``pk`` or ``sig`` as raw bytes, any length)."""
+    pk, msg, sig = lanes
+    if "prefix" in fields:
+        pk = bytes([fields["prefix"]]) + pk[1:]
+    if "x" in fields:
+        pk = pk[:1] + fields["x"].to_bytes(32, "big")
+    if "r" in fields:
+        sig = fields["r"].to_bytes(32, "big") + sig[32:]
+    if "s" in fields:
+        sig = sig[:32] + fields["s"].to_bytes(32, "big")
+    return fields.get("pk", pk), msg, fields.get("sig", sig)
+
+
+# each edge lane and whether the host checks accept it
+K1_EDGES = [
+    ({"s": K1_N // 2}, True), ({"s": K1_N // 2 + 1}, False), ({"s": 1}, True),
+    ({"s": 0}, False), ({"r": K1_N - 1}, True), ({"r": K1_N}, False), ({"r": 1}, True),
+    ({"r": 0}, False), ({"r": K1_P - K1_N}, True), ({"r": K1_P - K1_N - 1}, True),
+    ({"x": K1_P - 1}, True), ({"x": K1_P}, False), ({"x": 2**256 - 1}, False),
+    ({"prefix": 0}, False), ({"prefix": 4}, False), ({"prefix": 5}, False),
+    ({"prefix": 3}, True), ({"pk": bytes(32)}, False), ({"pk": bytes(34)}, False),
+    ({"sig": bytes(63)}, False), ({"sig": bytes(65)}, False), ({"pk": b"", "sig": b""}, False),
+]
+
+
+def _k1_edges():
+    base = list(zip(*_k1_random(len(K1_EDGES), 41, twins=False)))
+    return tuple(map(list, zip(*(_k1_with(lane, **edit)
+                                 for lane, (edit, _) in zip(base, K1_EDGES)))))
+
+
+# a range takes at least 512 lanes (K1_MIN_RANGE), so 1,800 lanes make
+# three ranges of 600 at 3 threads and four of 450 at 8 and 16
+REFUSED_RANGE = range(450, 1350)
+
+
+def _k1_refused_range():
+    """1,800 lanes of which lanes 450-1349 are all refused: a range with no
+    accepted lane at 3, 8 and 16 threads."""
+    lanes = list(zip(*_k1_random(1800, 42, twins=False)))
+    refused = [edit for edit, accept in K1_EDGES if not accept]
+    for i in REFUSED_RANGE:
+        lanes[i] = _k1_with(lanes[i], **refused[i % len(refused)])
+    return tuple(map(list, zip(*lanes)))
+
+
+SHA256_EDGE_LENGTHS = [0, 55, 56, 63, 64, 119, 120]
+
+K1_PREP_CASES = {
+    **{f"corpus {name}": make for name, make in corpus.K1_CORPORA.items()},
+    "random 10,000 with high-S twins": lambda: _k1_random(10_000, 40),
+    "scalar and key edges": _k1_edges,
+    "a range with no accepted lane": _k1_refused_range,
+    "no accepted lane": lambda: tuple(map(list, zip(*(_k1_with(lane, prefix=0) for lane in
+                                                      zip(*_k1_random(5, 43)))))),
+    "sha-256 padding edges": lambda: _k1_random(len(SHA256_EDGE_LENGTHS), 44,
+                                                SHA256_EDGE_LENGTHS),
+    "empty": lambda: ([], [], []),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K1_PREP_CASES))
+def test_k1_prep_equals_plain_and_reference(monkeypatch, name):
+    """The plane and host verdicts of ``prepare_k1_batch_packed`` (the C
+    entry) equal the plain prep's and the reference's, byte for byte, at
+    every thread count."""
+    pks, msgs, sigs = K1_PREP_CASES[name]()
+    want_packed, want_ok = jkv.prepare_k1_batch_packed(pks, msgs, sigs)
+    plain_packed, plain_ok = kv.prepare_k1_batch_packed_plain(pks, msgs, sigs)
+    np.testing.assert_array_equal(plain_packed, want_packed)
+    np.testing.assert_array_equal(plain_ok, want_ok)
+    for nthreads in K1_THREADS:
+        monkeypatch.setattr(native, "_threads", lambda _given: nthreads)
+        packed, ok = kv.prepare_k1_batch_packed(pks, msgs, sigs)
+        assert packed.dtype == np.uint8 and packed.shape == (168, len(sigs))
+        np.testing.assert_array_equal(packed, want_packed)
+        np.testing.assert_array_equal(ok, want_ok)
+
+
+def test_k1_edge_lanes_reach_their_branches():
+    """Each edge lane is accepted or refused as listed; where r + n is p or
+    more, rpn is r; a refused lane carries the dummy bytes; the high-S
+    twins and the empty range are there."""
+    pks, msgs, sigs = _k1_edges()
+    packed, ok = kv.prepare_k1_batch_packed(pks, msgs, sigs)
+    assert ok.tolist() == [accept for _, accept in K1_EDGES]
+    col = lambda i, row: int.from_bytes(packed[row:row + 32, i].tobytes(), "big")  # noqa: E731
+    for i, (edit, accept) in enumerate(K1_EDGES):
+        r = edit.get("r")
+        if accept and r is not None:
+            assert col(i, 128) == (r + K1_N if r + K1_N < K1_P else r)
+        if not accept:
+            assert [col(i, row) for row in range(0, 160, 32)] == [0, 1, 1, 1, 1]
+    assert col(K1_EDGES.index(({"r": K1_P - K1_N}, True)), 128) == K1_P - K1_N
+    assert not packed[161:].any()
+    _, ok = kv.prepare_k1_batch_packed(*K1_PREP_CASES["random 10,000 with high-S twins"]())
+    assert not ok[4::5].any() and ok.sum() == 8_000
+    _, ok = kv.prepare_k1_batch_packed(*_k1_refused_range())
+    assert ok.tolist() == [i not in REFUSED_RANGE for i in range(1800)]
+    assert _c_int("K1_MIN_RANGE") == 512
+
+
+def test_prep_k1_rows_are_checked():
+    with pytest.raises(ValueError, match=r"\[2, 33\]"):
+        native.prep_k1(np.zeros((2, 32), np.uint8), np.zeros((2, 64), np.uint8), [b"", b""])
+    with pytest.raises(ValueError, match=r"\[2, 64\]"):
+        native.prep_k1(np.zeros((2, 33), np.uint8), np.zeros((2, 63), np.uint8), [b"", b""])
+
+
+# ---------------------------------------------------------------------------
+# Arithmetic mod the secp256k1 order n = 2^256 - NC
+
+
+def _folds(x, nc):
+    """The folds x = lo + hi 2^256 -> lo + hi NC that the C reduction makes
+    before x < 2^256, and the subtractions of n after them."""
+    k = 0
+    while x >> 256:
+        x = (x & (2**256 - 1)) + (x >> 256) * nc
+        k += 1
+    return k, x // (2**256 - nc)
+
+
+def _fold_edge(v):
+    """The least x whose second fold leaves v (so x mod n = v mod n): with
+    v >> 256 = 1, a third fold carries where v mod 2^256 >= 2^256 - NC,
+    and a fourth follows."""
+    nc = 2**256 - K1_N
+    hi1 = -(-(v - 2**256 + 1) // nc)            # the least hi1 with v - hi1 NC < 2^256
+    t1 = v + hi1 * K1_N                         # lo1 + hi1 2^256, lo1 = v - hi1 NC
+    hi0 = -(-(t1 - 2**256 + 1) // nc)
+    return t1 + hi0 * K1_N
+
+
+_NC = 2**256 - K1_N
+_RND = np.random.default_rng(12).bytes(64 * 300)
+MOD_N_INPUTS = {
+    "small": [0, 1, 2, 3],
+    "just below and above n": [K1_N - 2, K1_N - 1, K1_N, K1_N + 1, 2 * K1_N - 1, 2 * K1_N,
+                               2**256 - 1, 2**256, 2**256 + _NC - 1],
+    "products near n^2": [(K1_N - 1) ** 2, (K1_N - 1) * (K1_N - 2), (K1_N + 1) ** 2,
+                          (2**256 - 1) ** 2, K1_N**2, K1_N * (K1_N // 2), 2**512 - 1],
+    "fourth fold": [_fold_edge(2**257 - 1), _fold_edge(2**257 - _NC),
+                    _fold_edge(2**257 - _NC - 1)],
+    "random products": [int.from_bytes(_RND[64 * i:64 * i + 32], "big")
+                        * int.from_bytes(_RND[64 * i + 32:64 * i + 64], "big")
+                        for i in range(300)],
+}
+
+
+@pytest.mark.parametrize("group", list(MOD_N_INPUTS))
+def test_mod_n_equals_int(group):
+    xs = MOD_N_INPUTS[group]
+    assert xs and all(0 <= x < 2**512 for x in xs)
+    rows = np.array([list(x.to_bytes(64, "big")) for x in xs], dtype=np.uint8)
+    red, inv = native.mod_n_for_tests(rows)
+    as_int = lambda rows: [int.from_bytes(r.tobytes(), "big") for r in rows]  # noqa: E731
+    assert as_int(red) == [x % K1_N for x in xs]
+    assert as_int(inv) == [pow(x, -1, K1_N) if x % K1_N else 0 for x in xs]
+
+
+def test_mod_n_reaches_every_fold_count():
+    """The constructed values reach no fold up to the fourth, and both no
+    subtraction and one after the folds; random products make two or three
+    folds."""
+    nc = _c_constant("NC")
+    constructed = [x for g, xs in MOD_N_INPUTS.items() if g != "random products" for x in xs]
+    assert {_folds(x, nc)[0] for x in constructed} == {0, 1, 2, 3, 4}
+    assert {_folds(x, nc)[1] for x in constructed} == {0, 1}
+    assert {_folds(x, nc)[0] for x in MOD_N_INPUTS["random products"]} <= {2, 3}
+
+
+def test_mod_n_constants_and_fold_bound():
+    """hostprep.c's N_LIMBS is secp256k1's order, NC = 2^256 - n < 2^129,
+    HALF_N = floor(n / 2) and P_LIMBS the field prime; from x < 2^512 the
+    worst case of each fold (below) is under 2^256 after four, and 2^256 <
+    2n, so four folds and one subtraction suffice."""
+    n, nc = _c_constant("N_LIMBS"), _c_constant("NC")
+    assert n == K1_N and nc == 2**256 - n and nc < 2**129
+    assert _c_constant("HALF_N") == n // 2 and _c_constant("P_LIMBS") == K1_P
+    bound, folds = 2**512 - 1, 0
+    while bound >> 256:
+        hi = bound >> 256  # the largest hi; a smaller one leaves lo free
+        bound = max(2**256 - 1 + (hi - 1) * nc, bound - hi * 2**256 + hi * nc)
+        folds += 1
+    assert folds == 4 and bound < 2 * n
+
+
+def test_mod_n_rows_are_checked():
+    with pytest.raises(ValueError, match=r"\[m, 64\]"):
+        native.mod_n_for_tests(np.zeros((2, 32), np.uint8))
+    red, inv = native.mod_n_for_tests(np.zeros((0, 64), np.uint8))
+    assert red.shape == inv.shape == (0, 32)

@@ -8,10 +8,10 @@ Per-lane semantics are the reference's low-S verify
 Split of labour:
 - host: lengths, the SEC 1 prefix (2 or 3) and x < p, r and s in
   [1, n - 1] with s <= n/2, SHA-256, and the scalars u1 = h/s and
-  u2 = r/s mod n (Python integers, one Montgomery batch inversion for the
-  whole batch), packed into one ``[168, B]`` uint8 plane: pkx | u1 | u2 |
-  r | rpn as big-endian 32-byte rows, the prefix's parity in row 160 and
-  seven zero rows;
+  u2 = r/s mod n (in C, ``native.prep_k1``, one Montgomery batch inversion
+  a thread; Python integers in the plain version), packed into one
+  ``[168, B]`` uint8 plane: pkx | u1 | u2 | r | rpn as big-endian 32-byte
+  rows, the prefix's parity in row 160 and seven zero rows;
 - device: SEC 1 decompression (one (p+1)/4 power), the 64-window
   Straus/Shamir ladder R = [u1]G + [u2]Q with the complete
   Renes-Costello-Batina formulas (algorithm 7 to add, 9 to double, a = 0,
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from tmtpu_torch import device as device_mod
+from tmtpu_torch import native
 from tmtpu_torch.crypto import secp256k1_ref as k1ref
 from tmtpu_torch.gpu import fe_k1 as fe
 from tmtpu_torch.gpu import spans
@@ -249,7 +250,25 @@ def prepare_k1_batch_packed(pks, msgs, sigs):
 
     Lanes with wrong lengths, a prefix other than 2 or 3, x >= p, r or s
     outside [1, n - 1] or s > n/2 get well-formed dummy bytes (x = 0,
-    u1 = u2 = r = rpn = 1) and host_ok False."""
+    u1 = u2 = r = rpn = 1) and host_ok False. Everything past the lengths
+    is the port's C library (``native.prep_k1``); a lane of the wrong
+    length goes in as zero bytes, which its prefix check refuses."""
+    B = len(sigs)
+    len_ok = ((np.fromiter(map(len, pks), dtype=np.int64, count=B) == 33)
+              & (np.fromiter(map(len, sigs), dtype=np.int64, count=B) == 64))
+    if not len_ok.all():
+        pks = [p if ok else _ZERO33 for p, ok in zip(pks, len_ok)]
+        sigs = [s if ok else _ZERO64 for s, ok in zip(sigs, len_ok)]
+    pk_arr = np.frombuffer(b"".join(pks), dtype=np.uint8).reshape(B, 33)
+    sig_arr = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(B, 64)
+    packed, ok = native.prep_k1(pk_arr, sig_arr, msgs)
+    return packed, ok & len_ok
+
+
+def prepare_k1_batch_packed_plain(pks, msgs, sigs):
+    """The plain version of ``prepare_k1_batch_packed``: the same bytes,
+    from Python integers and ``hashlib`` on one core. The tests and the
+    card's smoke run compare the two; nothing on the main path calls it."""
     B = len(sigs)
     pks_b = [bytes(p) for p in pks]
     sigs_b = [bytes(s) for s in sigs]
@@ -339,8 +358,9 @@ def batch_verify_k1(pks, msgs, sigs, device=None) -> np.ndarray:
         return np.zeros(0, dtype=bool)
     impl = metrics.impl_label(dev)
     t0 = time.perf_counter()
-    with trace.span("secp256k1.prepare", lanes=B):
+    with trace.span("secp256k1.prepare", lanes=B) as sp:
         packed, host_ok = prepare_k1_batch_packed(pks, msgs, sigs)
+        sp.set(rejected=B - int(np.count_nonzero(host_ok)))
     # the reference's execute holds the copies too; here each has its own
     # span, as on the ed25519 path
     with trace.span("secp256k1.device_put", lanes=B):

@@ -8,6 +8,9 @@ device-path entries, and the signature cache's store:
   (ed25519 host prep, ``gpu/verify.py::prepare_batch_packed``);
 - ``sr_challenges``: the merlin transcript walk of an sr25519 verify, k per
   lane (``gpu/sr_verify.py::prepare_sr_batch_packed``);
+- ``prep_k1``: the checks, SHA-256 and the scalars u1, u2 mod n of a
+  secp256k1 verify, the kernel's whole plane
+  (``gpu/k1_verify.py::prepare_k1_batch_packed``);
 - ``Store``: the sharded, lock-striped LRU set behind
   ``crypto/sigcache.py``, and ``resolve``, which computes a flush's cache
   keys (``sigcache.cache_key`` of every lane), looks them up in a store
@@ -16,8 +19,9 @@ device-path entries, and the signature cache's store:
 - ``walk_verify``: where each field of a sidecar VerifyRequest frame lies
   (``sidecar/protocol.py::decode_verify_columns``), or None where the
   frame needs the Python walk;
-- ``reduce_mod_l_for_tests``: the prep's reduction mod L alone, which the
-  tests hold against Python's ``int % L``.
+- ``reduce_mod_l_for_tests``, ``mod_n_for_tests``: the prep's arithmetic
+  mod L and mod the secp256k1 order n alone, which the tests hold against
+  Python's ``int``.
 
 The library is built at first use (``load``) into the gitignored
 ``tmtpu_torch/gpu/build/host/``, named by a hash of the source, the flags,
@@ -53,6 +57,9 @@ _SIGNATURES = {
     "tmtpu_prep_ed25519": [ctypes.c_size_t, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int],
     # n, pks, rs, msgs, moff, k_out, nthreads
     "tmtpu_sr_challenges": [ctypes.c_size_t, _P, _P, _P, _P, _P, ctypes.c_int],
+    # n, pks, sigs, msgs, moff, packed_out, ok_out, nthreads -> -1 out of memory
+    "tmtpu_prep_k1": ([ctypes.c_size_t, _P, _P, _P, _P, _P, _P, ctypes.c_int],
+                      ctypes.c_int64),
     # store, n, (types, toff), (pks, pkoff), (msgs, moff), (sigs, soff), keys_out,
     # rep_out, nthreads -> hits
     "tmtpu_cache_resolve": ([_P, ctypes.c_size_t, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -70,6 +77,8 @@ _SIGNATURES = {
     "tmtpu_cache_add": ([_P, ctypes.c_size_t, _P, _P], ctypes.c_int64),
     # n, in (n rows of 64 bytes), out (n rows of 32 bytes); the tests' entry
     "tmtpu_reduce_mod_l": [ctypes.c_size_t, _P, _P],
+    # n, in (n rows of 64 bytes), red_out, inv_out (n rows of 32); the tests' entry
+    "tmtpu_mod_n": [ctypes.c_size_t, _P, _P, _P],
     # body, len, cap, out [cap + 1, 7] -> lanes, -1 to defer to the Python walk
     "tmtpu_walk_verify": ([_P, ctypes.c_size_t, ctypes.c_int64, _P], ctypes.c_int64),
 }
@@ -148,11 +157,11 @@ def _threads(nthreads) -> int:
     return min(8, os.cpu_count() or 1) if nthreads is None else int(nthreads)
 
 
-def _rows(arr, n: int) -> np.ndarray:
-    """``arr`` as a C-contiguous [n, 32] uint8 array; raises otherwise."""
+def _rows(arr, n: int, width: int = 32) -> np.ndarray:
+    """``arr`` as a C-contiguous [n, width] uint8 array; raises otherwise."""
     out = np.ascontiguousarray(arr, dtype=np.uint8)
-    if out.shape != (n, 32):
-        raise ValueError(f"expected [{n}, 32] uint8 rows, got shape {out.shape}")
+    if out.shape != (n, width):
+        raise ValueError(f"expected [{n}, {width}] uint8 rows, got shape {out.shape}")
     return out
 
 
@@ -197,6 +206,25 @@ def sr_challenges(pk_arr, r_arr, msgs, nthreads=None) -> np.ndarray:
     return k_out
 
 
+def prep_k1(pk_arr, sig_arr, msgs, nthreads=None):
+    """The secp256k1 host prep of every lane (``tmtpu_prep_k1``): pk_arr
+    [B, 33] and sig_arr [B, 64] uint8, msgs B bytes-like messages. Returns
+    (packed [168, B] uint8: pkx | u1 | u2 | r | rpn as big-endian rows, the
+    prefix's parity in row 160, rows 161-167 zero; ok bool [B], False where
+    the prefix, x, r or s is refused, with dummy bytes in its column)."""
+    lib = load()
+    n = len(msgs)
+    pk_arr, sig_arr = _rows(pk_arr, n, 33), _rows(sig_arr, n, 64)
+    moff, mbuf = _concat(msgs, n)
+    packed = np.empty((168, n), dtype=np.uint8)
+    ok = np.empty(n, dtype=np.uint8)
+    if lib.tmtpu_prep_k1(n, pk_arr.ctypes.data, sig_arr.ctypes.data, mbuf.ctypes.data,
+                         moff.ctypes.data, packed.ctypes.data, ok.ctypes.data,
+                         _threads(nthreads)) < 0:
+        raise MemoryError("the secp256k1 host prep is out of memory")
+    return packed, ok.astype(bool)
+
+
 def reduce_mod_l_for_tests(values) -> np.ndarray:
     """The prep's reduction mod L alone, for the tests: ``values`` [n, 64]
     uint8, each row a 512-bit little-endian integer; returns [n, 32] uint8,
@@ -207,6 +235,20 @@ def reduce_mod_l_for_tests(values) -> np.ndarray:
     out = np.empty((len(rows), 32), dtype=np.uint8)
     load().tmtpu_reduce_mod_l(len(rows), rows.ctypes.data, out.ctypes.data)
     return out
+
+
+def mod_n_for_tests(values):
+    """The secp256k1 prep's arithmetic mod n alone, for the tests:
+    ``values`` [m, 64] uint8, each row a 512-bit big-endian integer x (a
+    product of two 256-bit values, say); returns (x mod n, (x mod n)^-1 or
+    0 where x mod n is 0), each [m, 32] uint8 big-endian. No flush calls
+    it."""
+    rows = np.ascontiguousarray(values, dtype=np.uint8)
+    if rows.ndim != 2 or rows.shape[1] != 64:
+        raise ValueError(f"expected [m, 64] uint8 rows, got shape {rows.shape}")
+    red, inv = (np.empty((len(rows), 32), dtype=np.uint8) for _ in range(2))
+    load().tmtpu_mod_n(len(rows), rows.ctypes.data, red.ctypes.data, inv.ctypes.data)
+    return red, inv
 
 
 def resolve(store, types, pks, msgs, sigs, nthreads=None):

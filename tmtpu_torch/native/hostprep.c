@@ -1,6 +1,6 @@
 /* Host preparation of the port's verify flush, in C.
  *
- * Two batched prep entries, each threaded over ranges of lanes:
+ * Three batched prep entries, each threaded over ranges of lanes:
  *
  *   tmtpu_prep_ed25519   h = SHA-512(R || A || M) mod L and s < L per lane,
  *                        the host half of ed25519 verification (the
@@ -8,14 +8,17 @@
  *                        Verify; Go's scMinimal for s < L);
  *   tmtpu_sr_challenges  the merlin transcript walk of an sr25519
  *                        (schnorrkel) verify, k = challenge mod L per lane;
+ *   tmtpu_prep_k1        the checks, SHA-256 and u1 = e/s, u2 = r/s mod n
+ *                        of a low-S secp256k1 ECDSA verify, written as the
+ *                        kernel's [168, n] plane;
  *
- * their reduction mod L alone (tmtpu_reduce_mod_l, which only the tests
- * call); and the verified-signature cache's store (tmtpu_cache_*): a sharded,
- * lock-striped LRU set of 32-byte keys, with tmtpu_cache_resolve, which
- * computes a flush's keys (SHA-256 of the length-prefixed (curve, pk,
- * msg, sig), byte-identical to crypto/sigcache.py's ``cache_key``) on
- * threads, looks each up and folds the flush's repeated misses onto their
- * first index, in one pass. Beside them, tmtpu_walk_verify, the sidecar's
+ * their arithmetic alone (tmtpu_reduce_mod_l and tmtpu_mod_n, which only
+ * the tests call); and the verified-signature cache's store
+ * (tmtpu_cache_*): a sharded, lock-striped LRU set of 32-byte keys, with
+ * tmtpu_cache_resolve, which computes a flush's keys (SHA-256 of the
+ * length-prefixed (curve, pk, msg, sig), byte-identical to
+ * crypto/sigcache.py's ``cache_key``) on threads, looks each up and folds
+ * the flush's repeated misses onto their first index, in one pass. Beside them, tmtpu_walk_verify, the sidecar's
  * walk of a VerifyRequest frame, which records where each field lies.
  *
  * Every prep output and key is a function of its lane's inputs alone, so
@@ -455,6 +458,219 @@ void tmtpu_prep_ed25519(size_t n, const uint8_t *pks, const uint8_t *rs,
                         int nthreads) {
     ed_ctx c = {pks, rs, ss, msgs, moff, h_out, s_ok};
     run_ranges(n, nthreads, ed_range, &c);
+}
+
+/* ------------------------------------------------------------------ */
+/* Arithmetic mod the secp256k1 group order                            */
+/* n = 2^256 - NC, NC = 2^256 - n < 2^129 (4 x 64-bit limbs, folding). */
+
+static const uint64_t N_LIMBS[4] = {0xbfd25e8cd0364141ULL, 0xbaaedce6af48a03bULL,
+                                    0xfffffffffffffffeULL, 0xffffffffffffffffULL};
+/* floor(n / 2): the low-S rule's largest s */
+static const uint64_t HALF_N[4] = {0xdfe92f46681b20a0ULL, 0x5d576e7357a4501dULL,
+                                   0xffffffffffffffffULL, 0x7fffffffffffffffULL};
+static const uint64_t NC[3] = {0x402da1732fc9bebfULL, 0x4551231950b75fc4ULL,
+                               0x0000000000000001ULL};
+/* the field prime p = 2^256 - 2^32 - 977 */
+static const uint64_t P_LIMBS[4] = {0xfffffffefffffc2fULL, 0xffffffffffffffffULL,
+                                    0xffffffffffffffffULL, 0xffffffffffffffffULL};
+
+/* One fold of t = lo + hi 2^256, hi the nhi limbs t[4 .. 4 + nhi): t =
+ * lo + hi NC, which is t mod n, since 2^256 = NC mod n. The sum's carries
+ * stay inside t's eight limbs: hi NC < 2^(64 nhi + 129). */
+static void fold_n(uint64_t t[8], int nhi) {
+    uint64_t hi[4];
+    memcpy(hi, t + 4, (size_t)nhi * sizeof *hi);
+    memset(t + 4, 0, (size_t)nhi * sizeof *t);
+    for (int i = 0; i < nhi; i++) {
+        uint64_t carry = 0;
+        for (int j = 0; j < 3; j++) {
+            u128 s = (u128)hi[i] * NC[j] + t[i + j] + carry;
+            t[i + j] = (uint64_t)s;
+            carry = (uint64_t)(s >> 64);
+        }
+        for (int k = i + 3; carry && k < 8; k++) {
+            u128 s = (u128)t[k] + carry;
+            t[k] = (uint64_t)s;
+            carry = (uint64_t)(s >> 64);
+        }
+    }
+}
+
+/* t (8 limbs, any value below 2^512) mod n into r (4 limbs); t is used as
+ * scratch. From t < 2^512, the first fold leaves t < 2^256 (NC + 1) <
+ * 2^386 (limbs 0-6), the second t < 2^256 + NC^2 < 2^258 (limbs 0-4), the
+ * third t < 2^256 + 2 NC; a fourth is needed only where that left limb 4
+ * at 1, and then the low limbs hold less than 2 NC, so t < 3 NC < 2^256.
+ * At most four folds, and t < 2^256 < 2n leaves at most one subtraction
+ * of n; the loops stay correct whatever the bounds past the second fold.
+ * tests/test_torch_native.py derives them from the constants above. */
+static void reduce_mod_n(uint64_t t[8], uint64_t r[4]) {
+    fold_n(t, 4);
+    fold_n(t, 3);
+    while (t[4]) fold_n(t, 1);
+    while (geq_n(t, N_LIMBS, 4)) sub_n(t, N_LIMBS, 4);
+    memcpy(r, t, 4 * sizeof *t);
+}
+
+/* r = a b mod n for any a, b below 2^256; r may alias a or b. */
+static void mul_mod_n(const uint64_t a[4], const uint64_t b[4], uint64_t r[4]) {
+    uint64_t t[8];
+    mul_n(a, 4, b, 4, t);
+    reduce_mod_n(t, r);
+}
+
+/* r = a^(n - 2) mod n, the inverse of a where a mod n is not 0 (Fermat;
+ * variable time: verification handles public data). */
+static void inv_mod_n(const uint64_t a[4], uint64_t r[4]) {
+    uint64_t e[4], acc[4] = {1, 0, 0, 0};
+    memcpy(e, N_LIMBS, sizeof e);
+    e[0] -= 2; /* the low limb of n is above 2 */
+    for (int i = 255; i >= 0; i--) {
+        mul_mod_n(acc, acc, acc);
+        if ((e[i / 64] >> (i % 64)) & 1) mul_mod_n(acc, a, acc);
+    }
+    memcpy(r, acc, sizeof acc);
+}
+
+static void be32_to_limbs(const uint8_t in[32], uint64_t v[4]) {
+    for (int k = 0; k < 4; k++) v[k] = load_be64(in + 8 * (3 - k));
+}
+
+static void limbs_to_be32(const uint64_t v[4], uint8_t out[32]) {
+    for (int k = 0; k < 32; k++) out[k] = (uint8_t)(v[3 - k / 8] >> (56 - 8 * (k % 8)));
+}
+
+/* For the tests only: n 64-byte big-endian values x in; x mod n and
+ * (x mod n)^-1 (0 where x mod n is 0) out, 32 bytes big-endian each. The
+ * prep reduces its products with reduce_mod_n through mul_mod_n. */
+void tmtpu_mod_n(size_t n, const uint8_t *in, uint8_t *red_out, uint8_t *inv_out) {
+    for (size_t i = 0; i < n; i++) {
+        uint64_t t[8], r[4];
+        for (int k = 0; k < 8; k++) t[k] = load_be64(in + 64 * i + 8 * (7 - k));
+        reduce_mod_n(t, r);
+        limbs_to_be32(r, red_out + 32 * i);
+        inv_mod_n(r, r);
+        limbs_to_be32(r, inv_out + 32 * i);
+    }
+}
+
+/* ------------------------------------------------------------------ */
+/* secp256k1: the host half of the low-S ECDSA verify.                 */
+
+#define K1_ROWS 168
+#define K1_PARITY_ROW 160
+/* The fewest lanes a thread's range takes: a range pays one inversion mod n
+ * and its thread's start, which cost as much as a few hundred lanes. */
+#define K1_MIN_RANGE 512
+
+typedef struct {
+    size_t n;
+    const uint8_t *pks, *sigs, *msgs;
+    const uint64_t *moff;
+    uint8_t *packed, *ok;
+    uint64_t *prefix; /* n rows of 4 limbs: the batch inversion's products */
+} k1_ctx;
+
+/* 32 big-endian bytes into rows [row, row + 32) of lane i's column. */
+static void k1_put(const k1_ctx *c, size_t i, int row, const uint8_t be[32]) {
+    for (int k = 0; k < 32; k++) c->packed[(size_t)(row + k) * c->n + i] = be[k];
+}
+
+static int is_zero4(const uint64_t v[4]) { return !(v[0] | v[1] | v[2] | v[3]); }
+
+/* One range's lanes: the checks, and for the lanes they accept the plane's
+ * columns, with w = s^-1 mod n from Montgomery's batch inversion over the
+ * range (prefix products, one inversion, the backward sweep). A refused
+ * lane stays out of the products. The inverse is unique, so the bytes do
+ * not depend on the ranges. */
+static void k1_range(const void *arg, size_t lo, size_t hi) {
+    static const uint8_t zero[32], one[32] = {[31] = 1};
+    const k1_ctx *c = (const k1_ctx *)arg;
+    uint64_t acc[4] = {1, 0, 0, 0};
+    for (size_t i = lo; i < hi; i++) {
+        const uint8_t *pk = c->pks + 33 * i, *sig = c->sigs + 64 * i;
+        uint64_t x[4], r[4], s[4];
+        be32_to_limbs(pk + 1, x);
+        be32_to_limbs(sig, r);
+        be32_to_limbs(sig + 32, s);
+        int ok = (pk[0] == 2 || pk[0] == 3) && !geq_n(x, P_LIMBS, 4) && !is_zero4(r) &&
+                 !geq_n(r, N_LIMBS, 4) && !is_zero4(s) && geq_n(HALF_N, s, 4);
+        c->ok[i] = (uint8_t)ok;
+        c->packed[(size_t)K1_PARITY_ROW * c->n + i] = pk[0] & 1;
+        for (int k = K1_PARITY_ROW + 1; k < K1_ROWS; k++) c->packed[(size_t)k * c->n + i] = 0;
+        if (!ok) { /* x = 0, u1 = u2 = r = rpn = 1 */
+            k1_put(c, i, 0, zero);
+            for (int row = 32; row < K1_PARITY_ROW; row += 32) k1_put(c, i, row, one);
+            continue;
+        }
+        k1_put(c, i, 0, pk + 1);
+        k1_put(c, i, 96, sig);
+        uint64_t rpn[4];
+        memcpy(rpn, r, sizeof rpn);
+        uint64_t carry = 0; /* rpn = r + n where that is below p, else r */
+        for (int k = 0; k < 4; k++) {
+            u128 t = (u128)rpn[k] + N_LIMBS[k] + carry;
+            rpn[k] = (uint64_t)t;
+            carry = (uint64_t)(t >> 64);
+        }
+        uint8_t be[32];
+        if (!carry && !geq_n(rpn, P_LIMBS, 4)) {
+            limbs_to_be32(rpn, be);
+            k1_put(c, i, 128, be);
+        } else {
+            k1_put(c, i, 128, sig);
+        }
+        memcpy(c->prefix + 4 * i, acc, sizeof acc);
+        mul_mod_n(acc, s, acc);
+    }
+    uint64_t inv[4];
+    inv_mod_n(acc, inv); /* acc is 1 where the range accepted no lane */
+    for (size_t i = hi; i-- > lo;) {
+        if (!c->ok[i]) continue;
+        const uint8_t *sig = c->sigs + 64 * i;
+        uint64_t w[4], s[4], r[4], e[4], u[4];
+        mul_mod_n(inv, c->prefix + 4 * i, w);
+        be32_to_limbs(sig + 32, s);
+        mul_mod_n(inv, s, inv);
+        sha256_ctx sc;
+        uint8_t be[32];
+        sha256_init(&sc);
+        sha256_update(&sc, c->msgs + c->moff[i], (size_t)(c->moff[i + 1] - c->moff[i]));
+        sha256_final(&sc, be);
+        be32_to_limbs(be, e);
+        mul_mod_n(e, w, u);
+        limbs_to_be32(u, be);
+        k1_put(c, i, 32, be);
+        be32_to_limbs(sig, r);
+        mul_mod_n(r, w, u);
+        limbs_to_be32(u, be);
+        k1_put(c, i, 64, be);
+    }
+}
+
+/* Per lane: the SEC 1 prefix is 2 or 3 and x < p, r is in [1, n - 1], s
+ * in [1, n / 2] (low-S); e = SHA-256(msg), w = s^-1, u1 = e w, u2 = r w
+ * mod n, rpn = r + n where that is below p, else r. pks: n rows of 33
+ * bytes; sigs: n rows of 64 (r || s, big-endian); msgs end to end, lane
+ * i at [moff[i], moff[i + 1]). packed_out: [168, n] row-major, lane i's
+ * column pkx | u1 | u2 | r | rpn as big-endian 32-byte rows, the prefix's
+ * parity in row 160 and rows 161-167 zero; a refused lane gets x = 0,
+ * u1 = u2 = r = rpn = 1 and its prefix's parity. ok_out: n bytes, 1 where
+ * the checks accept the lane. On nthreads threads, or fewer where a range
+ * would hold under K1_MIN_RANGE lanes. Returns 0, or -1 when out of
+ * memory. */
+int64_t tmtpu_prep_k1(size_t n, const uint8_t *pks, const uint8_t *sigs,
+                      const uint8_t *msgs, const uint64_t *moff, uint8_t *packed_out,
+                      uint8_t *ok_out, int nthreads) {
+    if (!n) return 0;
+    uint64_t *prefix = malloc(n * 4 * sizeof *prefix);
+    if (!prefix) return -1;
+    k1_ctx c = {n, pks, sigs, msgs, moff, packed_out, ok_out, prefix};
+    size_t most = (n + K1_MIN_RANGE - 1) / K1_MIN_RANGE;
+    run_ranges(n, (size_t)nthreads < most ? nthreads : (int)most, k1_range, &c);
+    free(prefix);
+    return 0;
 }
 
 /* ------------------------------------------------------------------ */
