@@ -15,13 +15,13 @@ serial verifier (bench.py's 18,182 sig/s), ``device_only_sig_s`` (the step
 on a staged plane), ``structures``, ``phases`` and ``e2e_ms_per_10k``
 (one set through ``sync``).
 
-``--flood``: 100,000 votes verified and tallied across a mesh through
-``mesh_dispatch.batch_verify_tally_mesh``, against the single-device
-10,000 (``sharding.batch_verify_tally``), as one
-``multichip_flood_verify_tally`` line; ``single_device_full`` is the same
-votes in one single-device flush, so ``split_speedup`` says whether the
-split beat one card at that width. On the card each time is a median of
-3, the mesh and the single-device flushes in turns. ``--shards N`` spreads N shards
+``--flood``: 100,000 votes verified and tallied across a mesh through the
+sharded step (host prep, then ``sharding.sharded_verify_tally``, one
+readback), against the single-device 10,000 (``sharding.batch_verify_tally``),
+as one ``multichip_flood_verify_tally`` line; ``single_device_full`` is the
+same votes in one single-device flush, so ``split_speedup`` says whether
+the split beat one card at that width. On the card each time is a median
+of 3, the mesh and the single-device flushes in turns. ``--shards N`` spreads N shards
 over the visible cards (N shards of the one card on a one-card machine,
 which measures the split's own cost); the default is one shard a card.
 
@@ -253,8 +253,8 @@ def run_pipeline(dev, lanes: int) -> dict:
 
 
 def run_flood(dev, lanes: int, shards: int) -> dict:
-    from tmtpu_torch.gpu import mesh_dispatch as md
     from tmtpu_torch.gpu import sharding
+    from tmtpu_torch.gpu import verify as tv
 
     if shards:
         count = torch.cuda.device_count() if dev.type == "cuda" else 1
@@ -268,11 +268,17 @@ def run_flood(dev, lanes: int, shards: int) -> dict:
     powers = [POWER] * lanes
     prep_dt = time.perf_counter() - t0
     print(f"bench: flood generated {lanes} votes in {prep_dt:.1f}s", file=sys.stderr)
-    md.reset()
     args = (pks, msgs, sigs, powers)
     ref_args = tuple(col[:ref_lanes] for col in args)
+    step = sharding.sharded_verify_tally(mesh)
+
+    def flood():
+        packed, host_ok = tv.prepare_batch_packed(pks, msgs, sigs)
+        mask, sums = step(packed, sharding.power_limbs(powers), host_ok)
+        return mask.cpu().numpy(), sharding.combine_limbs(sums.cpu().tolist())
+
     runs = {
-        "flood": lambda: md.batch_verify_tally_mesh(*args, mesh=mesh),
+        "flood": flood,
         "ref": lambda: sharding.batch_verify_tally(*ref_args, device=dev),
         "full": lambda: sharding.batch_verify_tally(*args, device=dev),
     }
@@ -291,7 +297,7 @@ def run_flood(dev, lanes: int, shards: int) -> dict:
             if not mask.all() or tallied != want[name]:
                 raise RuntimeError(f"the {name} lanes must verify and tally exactly")
     flood_dt, ref_dt, full_dt = (sorted(times[k])[n_runs // 2] for k in runs)
-    snap = md.snapshot()
+    sizes = [hi - lo for lo, hi in sharding.shard_bounds(lanes, len(mesh))]
     return {
         "metric": "multichip_flood_verify_tally",
         "value": round(lanes / flood_dt, 1),
@@ -302,8 +308,7 @@ def run_flood(dev, lanes: int, shards: int) -> dict:
         "distinct_devices": len(set(mesh)),
         "platform": "gpu" if dev.type == "cuda" else "cpu",
         "card": card_line(dev),
-        "per_chip_occupancy": snap["occupancy_lanes"],
-        "shard_lanes": snap["last"]["shard_lanes"],
+        "shard_lanes": sizes + [0] * (len(mesh) - len(sizes)),
         "single_device_ref": {"lanes": ref_lanes, "wall_s": round(ref_dt, 4),
                               "sig_s": round(ref_lanes / ref_dt, 1)},
         "single_device_full": {"lanes": lanes, "wall_s": round(full_dt, 4),

@@ -30,30 +30,24 @@ at once sending those 10,000 lanes on a fresh cache-on daemon with a fixed
 gather window (one dispatch of 40,000 lanes, one launch of 10,000), one
 more request (the commit flush over the wire: hits but for the corrupted
 lanes) and (c) the mixed-curve set as one request a curve, then (d) a
-third daemon opted in to the mesh (``--mesh-devices 0``) with the
-10,000-vote set: split one launch a card on two or more cards (each
-card's occupancy in the daemon's Stats grown by its shard's lanes), one
-launch on one, and five more round trips timed against (a)'s, then (e) a daemon given only ``--home``, whose
-``config/config.toml`` (written by this script) sets its address, lane
-cap and request deadline, and (f) a daemon with ``--health-laddr``:
-``/healthz`` healthy and warmed, and after one 10,000-lane request
-``/metrics`` counting the dispatches, the ed25519 batches (one a launch)
-and the cache's counters that Stats counts, then one trace context
-received and one refused for a valid and a garbage v2 context, and (g) a daemon
-sent light-client traffic: one request of 4 validators x 1,024 heights
-(4,096 lanes, keys repeating every four lanes, one signature forged),
-held against the serial oracle, then 20 four-lane requests one after
-another, bisection's shape, timed, and the same on a daemon with no
-gather window (``--gather-ms 0``); every mask, tally,
-cache breakdown and launch count is checked,
-the codec and the in-process engine are timed alone, and each daemon must
-exit 0 on SIGTERM. Before the daemons, the mesh phase splits the sets
-across a mesh (every card, or four shards of the one card) through
-``mesh_dispatch`` and holds each split against the single-device path,
-checks the production gate of a ``TorchBatchVerifier`` flush opted in to
-the mesh, and calls ``entry()`` and ``dryrun_multichip``; every other
-phase runs with the mesh off, the port's default, on any number of
-cards. Before the mesh, the observability phase reads the spans of the
+daemon given only ``--home``, whose ``config/config.toml`` (written by
+this script) sets its address, lane cap and request deadline, and (e) a
+daemon with ``--health-laddr``: ``/healthz`` healthy and warmed, and after
+one 10,000-lane request ``/metrics`` counting the dispatches, the ed25519
+batches (one a launch) and the cache's counters that Stats counts, then
+one trace context received and one refused for a valid and a garbage v2
+context, and (f) a daemon sent light-client traffic: one request of 4
+validators x 1,024 heights (4,096 lanes, keys repeating every four lanes,
+one signature forged), held against the serial oracle, then 20 four-lane
+requests one after another, bisection's shape, timed, and the same on a
+daemon with no gather window (``--gather-ms 0``); every mask, tally,
+cache breakdown and launch count is checked, the codec and the in-process
+engine are timed alone, and each daemon must exit 0 on SIGTERM. Every
+daemon serves one card. Before the daemons, the mesh phase runs the
+sharded steps of ``gpu/sharding.py`` across a mesh (every card, or four
+shards of the one card) and holds each against the single-device path,
+and calls ``entry()`` and ``dryrun_multichip``. Before the mesh, the
+observability phase reads the spans of the
 real flush (``tmtpu_torch/libs/trace.py``): the cold 10,000-lane flush's
 roots (the cache's resolve and insert, the tree, the bit pack), the
 tree's stage times, with the execute stage's device time held within
@@ -111,7 +105,6 @@ from tmtpu_torch.crypto.ed25519 import PrivKeyEd25519, PubKeyEd25519
 from tmtpu_torch.crypto.secp256k1 import PubKeySecp256k1
 from tmtpu_torch.crypto.sr25519 import PrivKeySr25519, PubKeySr25519
 from tmtpu_torch.gpu import build, k1_kernel, kernel, sharding
-from tmtpu_torch.gpu import mesh_dispatch as md
 from tmtpu_torch.gpu import k1_verify as kv
 from tmtpu_torch.gpu import sr_verify as sv
 from tmtpu_torch.gpu import verify as tv
@@ -194,7 +187,7 @@ SIDECAR_CLIENTS = 4  # validator processes sharing the card in phase (b)
 GATHER_MS = 2000     # the fixed gather window that lets all four ride one dispatch
 READY_TIMEOUT_S = 300
 
-# (g) light-client-shaped traffic: a run of the sequential sync (4
+# (f) light-client-shaped traffic: a run of the sequential sync (4
 # validators x 1,024 heights, tools/light_bench.py's default run) in one
 # request, one signature forged, then bisection's four-lane requests
 LIGHT_CHAIN_ID = "tmtpu-torch-smoke-light"
@@ -255,6 +248,13 @@ def sign_all(*jobs):
 
 def corrupt(sig: bytes) -> bytes:
     return bytes([sig[0] ^ 0xFF]) + sig[1:]
+
+
+def tally_and_words(bv):
+    """One ``verify_tally`` with its bitarray read, so the pack that
+    ``bit_words`` makes at its first read stays inside the timed call."""
+    out = bv.verify_tally()
+    return out, bv.bit_words
 
 
 def words_of(mask: np.ndarray) -> np.ndarray:
@@ -587,7 +587,8 @@ def tally_past_2_63(key, msg, sig) -> dict:
 def observability_phase(keys, msgs, sigs, expect, m_keys, m_msgs, m_sigs, m_expect,
                         kernel_ms, card) -> dict:
     """The device path's spans read from the real flush: (i) the cold
-    10,000-lane ed25519 verify_tally, traced, records four roots in turn:
+    10,000-lane ed25519 verify_tally and the first read of its
+    ``bit_words``, traced, record four roots in turn:
     ``sigcache.resolve`` (``lanes`` 10,000, ``hits`` 0), the reference's
     tree (``crypto.batch_verify_tally`` over prepare, device_put, execute
     and readback, ``lanes`` 10,000), ``sigcache.insert`` (``lanes`` the
@@ -615,11 +616,13 @@ def observability_phase(keys, msgs, sigs, expect, m_keys, m_msgs, m_sigs, m_expe
     reset_launches()
     t0 = time.perf_counter()
     _ok, mask, tally = bv.verify_tally()
+    words = bv.bit_words  # packed at its first read, under crypto.pack_words
     wall_ms = (time.perf_counter() - t0) * 1e3
     out["launches"] = launches()
     spans = trace.drain()
-    check(mask == expect.tolist() and tally == POWER * int(expect.sum()),
-          "observability (i): mask and tally")
+    check(mask == expect.tolist() and tally == POWER * int(expect.sum())
+          and np.array_equal(words, words_of(expect)),
+          "observability (i): mask, tally and bitarray words")
     check(out["launches"]["ed25519_verify"] == 1, f"observability (i): {out['launches']}")
     roots = sorted((sp for sp in spans if sp.parent_id is None), key=lambda sp: sp.start_s)
     check([(sp.name, sp.attrs.get("lanes")) for sp in roots]
@@ -736,31 +739,49 @@ def observability_phase(keys, msgs, sigs, expect, m_keys, m_msgs, m_sigs, m_expe
 
 
 def mesh_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
-    """The lane split (``gpu/mesh_dispatch.py``) on the card: (a) the
-    10,000-vote ed25519 set across the mesh against the single-device
-    flush, bit for bit, timed; (b) the mixed set's sr25519 and secp256k1
-    lanes; (c) ragged widths with empty shards; (d) the tally past 2^63
-    with the copies on every shard; (e) the production gate of a
-    ``TorchBatchVerifier`` flush; (f) ``entry()`` and
-    ``dryrun_multichip``. The mesh is every card when there are two or
-    more, else ``MESH_SHARDS`` shards of the one card. Returns the counts
-    and times."""
+    """The sharded steps of ``gpu/sharding.py`` on the card, which
+    ``entry.dryrun_multichip`` certifies: (a) the 10,000-vote ed25519 set
+    through ``sharded_verify_tally`` against the single-device flush, bit
+    for bit, timed; (b) the mixed set's sr25519 and secp256k1 lanes through
+    ``sharded_verify_sr`` / ``sharded_verify_k1``; (c) ragged widths with
+    empty shards; (d) the tally past 2^63 with the copies on every shard;
+    (e) ``entry()`` and ``dryrun_multichip``. The mesh is every card when
+    there are two or more, else ``MESH_SHARDS`` shards of the one card.
+    Returns the counts and times."""
     dev = torch.device("cuda")
     cards = torch.cuda.device_count()
     mesh = sharding.make_mesh() if cards >= 2 else (torch.device("cuda", 0),) * MESH_SHARDS
     n = len(sigs)
     powers = [POWER] * n
     out = {"mesh": [str(d) for d in mesh]}
+    tally_step = sharding.sharded_verify_tally(mesh)
+    mask_steps = {crypto_batch.SR25519: (sv.prepare_sr_batch_packed,
+                                         sharding.sharded_verify_sr(mesh)),
+                  crypto_batch.SECP256K1: (kv.prepare_k1_batch_packed,
+                                           sharding.sharded_verify_k1(mesh))}
+
+    def sharded_tally(pks, msgs, sigs, powers):
+        packed, host_ok = tv.prepare_batch_packed(pks, msgs, sigs)
+        mask, sums = tally_step(packed, sharding.power_limbs(powers), host_ok)
+        return mask.cpu().numpy(), sharding.combine_limbs(sums.cpu().tolist())
+
+    def sharded_mask(kind, pks, msgs, sigs):
+        prep, step = mask_steps[kind]
+        packed, host_ok = prep(pks, msgs, sigs)
+        return step(packed).cpu().numpy() & host_ok
 
     def shards_of(b):
         return len(sharding.shard_bounds(b, len(mesh)))
 
-    # (a) the ed25519 set
-    md.reset()
+    # (a) the ed25519 set, each shard's width read off the launch wrapper
     reset_launches()
-    m_mask, m_tally = md.batch_verify_tally_mesh(pks, msgs, sigs, powers, mesh=mesh)
+    widths, launch = [], kernel.verify_packed
+    kernel.verify_packed = lambda packed: (widths.append(packed.shape[1]), launch(packed))[1]
+    try:
+        m_mask, m_tally = sharded_tally(pks, msgs, sigs, powers)
+    finally:
+        kernel.verify_packed = launch
     a_launches = launches()
-    snap = md.snapshot()
     s_mask, s_tally = sharding.batch_verify_tally(pks, msgs, sigs, powers, device=dev)
     check(np.array_equal(m_mask, s_mask) and np.array_equal(m_mask, expect),
           "mesh (a): the mask equals the single-device flush's")
@@ -772,22 +793,21 @@ def mesh_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
     want_sizes = [hi - lo for lo, hi in sharding.shard_bounds(n, len(mesh))]
     if len(mesh) == 4 and n == MAX_VOTES_COUNT:
         check(want_sizes == [2528, 2528, 2528, 2416], f"mesh (a): shard sizes {want_sizes}")
-    check(snap["last"]["shard_lanes"] == want_sizes and snap["dispatches"] == 1,
-          f"mesh (a): snapshot {snap}")
+    check(widths == want_sizes, f"mesh (a): shard widths {widths}, want {want_sizes}")
     mesh_ms, single_ms = [], []
     for _ in range(5):
         t0 = time.perf_counter()
-        md.batch_verify_tally_mesh(pks, msgs, sigs, powers, mesh=mesh)
+        sharded_tally(pks, msgs, sigs, powers)
         mesh_ms.append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
         sharding.batch_verify_tally(pks, msgs, sigs, powers, device=dev)
         single_ms.append((time.perf_counter() - t0) * 1e3)
-    out.update(launches=a_launches["ed25519_verify"], shard_lanes=snap["last"]["shard_lanes"],
+    out.update(launches=a_launches["ed25519_verify"], shard_lanes=widths,
                flush_ms=statistics.median(mesh_ms), single_ms=statistics.median(single_ms),
                flush_ms_all=mesh_ms, single_ms_all=single_ms)
     print(f"mesh (a): {n} ed25519 lanes over {len(mesh)} shards ({cards} card(s)), shard lanes "
-          f"{snap['last']['shard_lanes']}, launches {a_launches}; mask, tally {m_tally} and "
-          f"bitarray equal the single-device flush; batch_verify_tally_mesh "
+          f"{widths}, launches {a_launches}; mask, tally {m_tally} and bitarray equal the "
+          f"single-device flush; prep + sharded_verify_tally + readback "
           f"{out['flush_ms']:.3f} ms against sharding.batch_verify_tally {out['single_ms']:.3f} "
           f"ms, medians of 5 in turns [{card}]")
 
@@ -797,7 +817,7 @@ def mesh_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
     for kind, single in singles.items():
         k_pks, k_msgs, k_sigs, k_expect = mixed[kind]
         reset_launches()
-        m = md.batch_verify_mesh(kind, k_pks, k_msgs, k_sigs, mesh=mesh)
+        m = sharded_mask(kind, k_pks, k_msgs, k_sigs)
         b_launches = launches()
         check(np.array_equal(m, single(k_pks, k_msgs, k_sigs, device=dev))
               and np.array_equal(m, k_expect), f"mesh (b): {kind} mask")
@@ -814,7 +834,7 @@ def mesh_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
     for b in MESH_RAGGED:
         reset_launches()
         r_powers = [POWER + i for i in range(b)]
-        m, t = md.batch_verify_tally_mesh(pks[:b], msgs[:b], sigs[:b], r_powers, mesh=mesh)
+        m, t = sharded_tally(pks[:b], msgs[:b], sigs[:b], r_powers)
         check(launches()["ed25519_verify"] == shards_of(b),
               f"mesh (c): {b} lanes, one launch a non-empty shard ({launches()})")
         sm, st = sharding.batch_verify_tally(pks[:b], msgs[:b], sigs[:b], r_powers, device=dev)
@@ -822,7 +842,7 @@ def mesh_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
               f"mesh (c): {b} ed25519 lanes")
         for kind, single in singles.items():
             k_pks, k_msgs, k_sigs, k_expect = mixed[kind]
-            km = md.batch_verify_mesh(kind, k_pks[:b], k_msgs[:b], k_sigs[:b], mesh=mesh)
+            km = sharded_mask(kind, k_pks[:b], k_msgs[:b], k_sigs[:b])
             check(np.array_equal(km, single(k_pks[:b], k_msgs[:b], k_sigs[:b], device=dev))
                   and np.array_equal(km, k_expect[:b]), f"mesh (c): {b} {kind} lanes")
     print(f"mesh (c): widths {MESH_RAGGED} over {len(mesh)} shards "
@@ -838,7 +858,7 @@ def mesh_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
         rows = [(pks[1], msgs[1], sigs[1], P60) if j in at else
                 (pks[1 + j], msgs[1 + j], sigs[1 + j], 1) for j in range(b)]
         cols = [list(c) for c in zip(*rows)]
-        m, t = md.batch_verify_tally_mesh(*cols, mesh=mesh)
+        m, t = sharded_tally(*cols)
         _, st = sharding.batch_verify_tally(*cols, device=dev)
         check(m.all() and t == st == copies * P60 + b - copies,
               f"mesh (d): {copies} copies at 2^60: {t}")
@@ -847,43 +867,17 @@ def mesh_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
     print("mesh (d): the tally past 2^63 with the copies split across shards, exact: "
           + ", ".join(f"{k}: {v}" for k, v in big.items()))
 
-    # (e) the production gate: route() needs two or more cards
-    keys = [PubKeyEd25519(pk) for pk in pks]
-    # the mesh is off by default (mesh_devices 1): opt in to every card
-    os.environ["TMTPU_SHARD_MIN_LANES"] = "1"
-    md.set_overrides(mesh_devices=0)
-    try:
-        sigcache.invalidate_all()
-        bv = crypto_batch.new_batch_verifier()
-        for key, msg, sig in zip(keys, msgs, sigs):
-            bv.add(key, msg, sig, POWER)
-        before = md.dispatch_count()
-        reset_launches()
-        _, mask, tally = bv.verify_tally()
-        e_launches = launches()
-        routed = md.dispatch_count() - before
-    finally:
-        del os.environ["TMTPU_SHARD_MIN_LANES"]
-        md.set_overrides(**md.DEFAULTS)
-    check(mask == expect.tolist() and tally == POWER * int(expect.sum()), "mesh (e): the flush")
-    want_launches = shards_of(n) if cards >= 2 else 1
-    check(routed == (1 if cards >= 2 else 0) and e_launches["ed25519_verify"] == want_launches,
-          f"mesh (e): {cards} card(s), routed {routed}, launches {e_launches}")
-    out["gate_launches"] = e_launches["ed25519_verify"]
-    print(f"mesh (e): a TorchBatchVerifier flush with shard_min_lanes 1 on {cards} card(s): "
-          f"routed {routed}, launches {e_launches}")
-
-    # (f) the entry points
+    # (e) the entry points
     step, args = entry_mod.entry()
     e_mask, e_sums = step(*args)
     check(bool(e_mask.all()) and sharding.combine_limbs(e_sums.cpu().tolist()) == 32 * 1000,
-          "mesh (f): entry() step")
+          "mesh (e): entry() step")
     t0 = time.perf_counter()
     entry_mod.dryrun_multichip(MESH_SHARDS, devices=(torch.device("cuda", 0),) * MESH_SHARDS)
     if cards >= 2:
         entry_mod.dryrun_multichip(cards)
     out["dryrun_s"] = time.perf_counter() - t0
-    print(f"mesh (f): entry() and dryrun_multichip passed ({out['dryrun_s']:.1f} s)")
+    print(f"mesh (e): entry() and dryrun_multichip passed ({out['dryrun_s']:.1f} s)")
     return out
 
 
@@ -1117,65 +1111,7 @@ def sidecar_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
               f"tally exact, launches {launch_delta(before, after)}")
         y.terminate()
 
-        # (d) a daemon that opts in to the mesh (every card): on two or more
-        # cards its dispatch splits, one launch a card, shard i on cuda:i
-        # (make_mesh); on one it cannot
-        cards = torch.cuda.device_count()
-        used0 = [card_used_bytes(d) for d in range(cards)] if cards >= 2 else []
-        z = Daemon("mesh", "--no-sigcache", "--mesh-devices", "0")
-        daemons.append(z)
-        before = z.stats()
-        c = z.client("validator-0")
-        mask, tallied, info = c.verify(crypto_batch.ED25519, lanes, tally=True, deadline_s=60.0)
-        after = z.stats()
-        check(mask == want_mask and tallied == want_tally, "sidecar (d): mask and tally")
-        routed = after["coalescer"]["mesh_dispatches"] - before["coalescer"]["mesh_dispatches"]
-        want_sizes = [hi - lo for lo, hi in sharding.shard_bounds(n, cards)]
-        check(routed == (1 if cards >= 2 else 0)
-              and launch_delta(before, after)["ed25519_verify"] == len(want_sizes),
-              f"sidecar (d): {cards} card(s), mesh dispatches {routed}, "
-              f"launches {launch_delta(before, after)}")
-        out["mesh_daemon_routed"] = routed
-        split = ""
-        if cards >= 2:
-            check(after["mesh"]["last"]["shard_lanes"] == want_sizes,
-                  f"sidecar (d): shard lanes {after['mesh']['last']}")
-            check(after["mesh"]["devices"] == cards,
-                  f"sidecar (d): the daemon's mesh spans {after['mesh']['devices']} devices")
-            # occupancy is cumulative since the daemon started, a key a card
-            occ0, occ1 = before["mesh"]["occupancy_lanes"], after["mesh"]["occupancy_lanes"]
-            grown = [occ1.get(str(d), 0) - occ0.get(str(d), 0) for d in range(cards)]
-            check(grown == want_sizes, f"sidecar (d): occupancy grew by {grown} on cards "
-                                       f"0-{cards - 1}, want {want_sizes}")
-            # read from outside the daemon: the device memory its process
-            # came to hold on each card (its CUDA context and tensors)
-            held = [(card_used_bytes(d) - used0[d]) / 2**20 for d in range(cards)]
-            out.update(mesh_daemon_shard_lanes=grown, mesh_daemon_card_mib=held)
-            split = (f", shard lanes {grown} on cards 0-{cards - 1} (occupancy), the daemon's "
-                     f"process holds {', '.join(f'{m:.0f}' for m in held)} MiB on them")
-        print(f"sidecar (d): a daemon with --mesh-devices 0 on {cards} card(s): mesh dispatches "
-              f"{routed}, launches {launch_delta(before, after)}{split}, mask and tally exact")
-        # the split's round trip against the one-card daemon of (a), both
-        # cache-off on the same 10,000 lanes: a reading, not a bar
-        rtts = []
-        before = z.stats()
-        for _ in range(5):
-            t0 = time.perf_counter()
-            mask, tallied, info = c.verify(crypto_batch.ED25519, lanes, tally=True, deadline_s=60.0)
-            rtts.append((time.perf_counter() - t0) * 1e3)
-            check(mask == want_mask and tallied == want_tally, "sidecar (d): timed mask and tally")
-        c.close()
-        after = z.stats()
-        check(launch_delta(before, after)["ed25519_verify"] == 5 * len(want_sizes),
-              f"sidecar (d): timed launches {launch_delta(before, after)}")
-        out["mesh_daemon_rtt_ms"] = statistics.median(rtts)
-        out["mesh_daemon_rtt_ms_all"] = rtts
-        print(f"sidecar (d): round trip over {len(want_sizes)} shard(s) on {cards} card(s) "
-              f"{out['mesh_daemon_rtt_ms']:.3f} ms median of 5 "
-              f"({', '.join(f'{t:.1f}' for t in rtts)}) against {out['rtt_ms']:.3f} ms on one "
-              f"card in (a) [{card}]")
-        z.terminate()
-        print("sidecar daemons: all three drained and exited 0 on SIGTERM")
+        print("sidecar daemons: both drained and exited 0 on SIGTERM")
     except Exception:
         for d in daemons:
             print(f"--- daemon {d.name} stderr ---\n{d.stderr()}", file=sys.stderr)
@@ -1184,13 +1120,6 @@ def sidecar_phase(pks, msgs, sigs, expect, mixed, card) -> dict:
         for d in daemons:
             d.kill()
     return out
-
-
-def card_used_bytes(d: int) -> int:
-    """Device memory in use on card ``d`` by every process, as the driver
-    reports it."""
-    free, total = torch.cuda.mem_get_info(d)
-    return total - free
 
 
 def free_port() -> int:
@@ -1215,7 +1144,7 @@ def metric_value(text: str, series: str) -> float:
 
 
 def sidecar_config_and_health(pks, msgs, sigs, expect, card) -> dict:
-    """(e) a daemon configured by its home's config.toml alone, and (f) its
+    """(d) a daemon configured by its home's config.toml alone, and (e) its
     health listener: /healthz, then /metrics against Stats after one
     10,000-lane request."""
     n = len(sigs)
@@ -1223,7 +1152,7 @@ def sidecar_config_and_health(pks, msgs, sigs, expect, card) -> dict:
     out = {}
     daemons = []
     try:
-        # (e) the address, the lane cap and the deadline from the file
+        # (d) the address, the lane cap and the deadline from the file
         lane_cap, deadline_ns = 12345, 7_500_000_000
 
         def config(home):
@@ -1237,33 +1166,33 @@ def sidecar_config_and_health(pks, msgs, sigs, expect, card) -> dict:
         x = Daemon("config home", config=config)
         daemons.append(x)
         check(x.addr == out["config_addr"],
-              f"sidecar (e): listens at the file's address ({x.addr} vs {out['config_addr']})")
+              f"sidecar (d): listens at the file's address ({x.addr} vs {out['config_addr']})")
         c = x.client("config")
         ack = c.connect()
         limits = x.stats()["limits"]
         check(ack.max_lanes == lane_cap and limits["max_lanes_per_dispatch"] == lane_cap
               and limits["request_deadline_s"] == deadline_ns / 1e9,
-              f"sidecar (e): the file's limits (ack {ack.max_lanes}, stats {limits})")
+              f"sidecar (d): the file's limits (ack {ack.max_lanes}, stats {limits})")
         mask, tallied, _ = c.verify(crypto_batch.ED25519, lanes[:64], tally=True, deadline_s=60.0)
-        check(mask == expect[:64].tolist(), "sidecar (e): a request at the file's address")
+        check(mask == expect[:64].tolist(), "sidecar (d): a request at the file's address")
         c.close()
-        print(f"sidecar (e): --home with config.toml alone: listening at {x.addr}, "
+        print(f"sidecar (d): --home with config.toml alone: listening at {x.addr}, "
               f"limits {limits}, HelloAck max_lanes {ack.max_lanes}")
         x.terminate()
 
-        # (f) /healthz and /metrics
+        # (e) /healthz and /metrics
         y = Daemon("health", "--health-laddr", f"127.0.0.1:{free_port()}")
         daemons.append(y)
         base = "http://" + y.ready.split("health=")[1].split()[0]
         status, ctype, body = http_get(base + "/healthz")
         health = json.loads(body)
         check(status == 200 and ctype == "application/json" and health["healthy"] is True
-              and health["warmed"] is True, f"sidecar (f): /healthz ({status}, {ctype})")
+              and health["warmed"] is True, f"sidecar (e): /healthz ({status}, {ctype})")
         before = y.stats()
         c = y.client("health")
         mask, tallied, _ = c.verify(crypto_batch.ED25519, lanes, tally=True, deadline_s=60.0)
         c.close()
-        check(mask == expect.tolist(), "sidecar (f): mask")
+        check(mask == expect.tolist(), "sidecar (e): mask")
         after = y.stats()
         status, ctype, text = http_get(base + "/metrics")
         m = re.search(r'^tendermint_sidecar_server_dispatches_total\{curve="ed25519"\} (\d+)$',
@@ -1271,12 +1200,12 @@ def sidecar_config_and_health(pks, msgs, sigs, expect, card) -> dict:
         dispatches = after["coalescer"]["dispatches"]
         check(status == 200 and ctype == "text/plain; version=0.0.4" and m is not None
               and int(m.group(1)) == dispatches and dispatches >= 1,
-              f"sidecar (f): /metrics dispatches {m and m.group(1)} vs Stats {dispatches}")
+              f"sidecar (e): /metrics dispatches {m and m.group(1)} vs Stats {dispatches}")
         check(launch_delta(before, after)["ed25519_verify"] == 1,
-              f"sidecar (f): one launch ({launch_delta(before, after)})")
-        check(http_get(base + "/nothing")[0] == 404, "sidecar (f): 404 elsewhere")
+              f"sidecar (e): one launch ({launch_delta(before, after)})")
+        check(http_get(base + "/nothing")[0] == 404, "sidecar (e): 404 elsewhere")
         out["health_dispatches"] = dispatches
-        print(f"sidecar (f): /healthz 200 healthy and warmed; after one {n}-lane request "
+        print(f"sidecar (e): /healthz 200 healthy and warmed; after one {n}-lane request "
               f"/metrics dispatches_total{{curve=\"ed25519\"}} {m.group(1)} = Stats "
               f"{dispatches}, launches {launch_delta(before, after)} [{card}]")
         # the device path's families against Stats: one batch a launch,
@@ -1285,28 +1214,28 @@ def sidecar_config_and_health(pks, msgs, sigs, expect, card) -> dict:
                                      '{curve="ed25519",backend="gpu"}')
         ed_launches = after["engine"]["launches"]["ed25519_verify"]
         check(batches == ed_launches,
-              f"sidecar (f): /metrics ed25519 batches {batches} vs Stats launches {ed_launches}")
+              f"sidecar (e): /metrics ed25519 batches {batches} vs Stats launches {ed_launches}")
         cache = {k: metric_value(text, f"tendermint_crypto_sigcache_{k}_total")
                  for k in ("hits", "misses", "inserts", "evictions")}
         cache["entries"] = metric_value(text, "tendermint_crypto_sigcache_entries")
         stats_cache = {k: after["sigcache"][k] for k in cache}
         check(cache == stats_cache,
-              f"sidecar (f): /metrics sigcache {cache} vs Stats {stats_cache}")
+              f"sidecar (e): /metrics sigcache {cache} vs Stats {stats_cache}")
         # one request with a valid v2 trace context, one with garbage
         c = y.client("traced")
         good = trace.TraceContext("00112233445566ff", 7, "chip-smoke").encode()
         for ctx, lo in ((good, 0), (b"\x01garbage", 4)):
             mask, _tallied, _ = c.verify(crypto_batch.ED25519, lanes[lo:lo + 4], tally=True,
                                          deadline_s=60.0, trace_ctx=ctx)
-            check(mask == expect[lo:lo + 4].tolist(), "sidecar (f): traced requests' masks")
+            check(mask == expect[lo:lo + 4].tolist(), "sidecar (e): traced requests' masks")
         c.close()
         text = http_get(base + "/metrics")[2]
         contexts = {k: metric_value(text, f'tendermint_trace_context_{k}_total'
                                           '{transport="sidecar"}') for k in ("rx", "invalid")}
-        check(contexts == {"rx": 1, "invalid": 1}, f"sidecar (f): trace contexts {contexts}")
+        check(contexts == {"rx": 1, "invalid": 1}, f"sidecar (e): trace contexts {contexts}")
         out["health_batches"] = batches
         out["health_sigcache"] = cache
-        print(f"sidecar (f): /metrics crypto_batch_size_count{{curve=\"ed25519\","
+        print(f"sidecar (e): /metrics crypto_batch_size_count{{curve=\"ed25519\","
               f"backend=\"gpu\"}} {batches:g} = Stats ed25519 launches {ed_launches}; "
               f"sigcache {cache} = Stats; trace_context rx {contexts['rx']:g}, invalid "
               f"{contexts['invalid']:g} after one valid and one garbage context [{card}]")
@@ -1322,7 +1251,7 @@ def sidecar_config_and_health(pks, msgs, sigs, expect, card) -> dict:
 
 
 def light_phase(light, card) -> dict:
-    """(g) light-client-shaped traffic through a daemon of its own: one
+    """(f) light-client-shaped traffic through a daemon of its own: one
     request of 4 validators x 1,024 heights (a run of the sequential sync:
     4,096 lanes, the keys repeating every four lanes, every message a
     distinct precommit) with one forged signature, held against the serial
@@ -1337,7 +1266,7 @@ def light_phase(light, card) -> dict:
     sigs[forged] = corrupt(sigs[forged])
     want = serial_mask(["ed25519"] * len(sigs), pks, msgs, sigs)
     check(np.flatnonzero(~want).tolist() == [forged],
-          f"light (g): the oracle rejects the forged lane alone ({np.flatnonzero(~want)})")
+          f"light (f): the oracle rejects the forged lane alone ({np.flatnonzero(~want)})")
     run_lanes = list(zip(pks[:n_run], msgs[:n_run], sigs[:n_run], [LIGHT_POWER] * n_run))
     out = {}
 
@@ -1354,7 +1283,7 @@ def light_phase(light, card) -> dict:
                                      deadline_s=60.0)
             run_ms.append((time.perf_counter() - t0) * 1e3)
             check(mask == want[:n_run].tolist() and info["dispatch_lanes"] == n_run,
-                  f"light (g), {what}: one dispatch of the run, its mask the oracle's, "
+                  f"light (f), {what}: one dispatch of the run, its mask the oracle's, "
                   f"the forged lane included ({info})")
         for hop in range(LIGHT_HOPS):
             lo = n_run + LIGHT_VALS * hop
@@ -1363,12 +1292,12 @@ def light_phase(light, card) -> dict:
             mask, tallied, _ = c.verify(crypto_batch.ED25519, lanes, tally=True, deadline_s=60.0)
             hop_ms.append((time.perf_counter() - t0) * 1e3)
             check(mask == [True] * LIGHT_VALS and tallied == LIGHT_POWER * LIGHT_VALS,
-                  f"light (g), {what}: hop {hop}'s mask and tally ({mask}, {tallied})")
+                  f"light (f), {what}: hop {hop}'s mask and tally ({mask}, {tallied})")
         c.close()
         counted = launch_delta(before, d.stats())
         check(counted == {"ed25519_verify": runs + LIGHT_HOPS, "sr25519_verify": 0,
                           "k1_verify": 0},
-              f"light (g), {what}: one launch a request ({counted})")
+              f"light (f), {what}: one launch a request ({counted})")
         d.terminate()
         return run_ms, hop_ms, counted
 
@@ -1388,7 +1317,7 @@ def light_phase(light, card) -> dict:
                     f"light_hop_rtt_ms{key}": statistics.median(hop_ms),
                     f"light_hop_rtt_ms{key}_all": hop_ms,
                     f"light_launches{key}": counted["ed25519_verify"]})
-        print(f"light (g), daemon {name!r} {' '.join(args)}: {LIGHT_VALS} validators x "
+        print(f"light (f), daemon {name!r} {' '.join(args)}: {LIGHT_VALS} validators x "
               f"{LIGHT_HEIGHTS} heights in one request ({n_run} lanes, the forged signature "
               f"at height {LIGHT_FORGED[0]}, validator {LIGHT_FORGED[1]}): mask equals the "
               f"serial oracle's, round trip {statistics.median(run_ms):.3f} ms (median of "
@@ -1427,9 +1356,8 @@ def codec_and_engine(pks, msgs, sigs, expect, card) -> dict:
 
     def engine():
         return crypto_batch.verify_lanes(crypto_batch.ED25519, pks, msgs, sigs, powers, True)
-    mask, tallied, _, meshed = engine()
-    check(mask == expect.tolist() and tallied == POWER * int(expect.sum()) and meshed == 0,
-          "engine: mask and tally, on one card")
+    mask, stats = engine()
+    check(mask == expect.tolist() and stats["dispatched"] == n, "engine: the mask, cold")
     t["engine_cold_ms"] = time_host(engine, 5, before=sigcache.invalidate_all)
     sigcache.DEFAULT.set_enabled(False)
     t["engine_cache_off_ms"] = time_host(engine, 5)
@@ -1551,9 +1479,9 @@ def main() -> int:
     print(f"ed25519 path: verify_tally over {n} votes, tally {tally}, "
           f"{len(bad)} rejected, launches {ed_launches}")
     cold = (mask, tally, bv.bit_words.copy())
-    e2e_ms = time_host(bv.verify_tally, 5, before=sigcache.invalidate_all)
+    e2e_ms = time_host(lambda: tally_and_words(bv), 5, before=sigcache.invalidate_all)
     sigcache.DEFAULT.set_enabled(False)
-    e2e_off_ms = time_host(bv.verify_tally, 5)
+    e2e_off_ms = time_host(lambda: tally_and_words(bv), 5)
     sigcache.DEFAULT.set_enabled(True)
     print(f"end to end verify_tally, cold: {e2e_ms:.3f} ms median of 5 = "
           f"{n / e2e_ms * 1e3:.0f} sig/s; cache off {e2e_off_ms:.3f} ms [{card}]")
@@ -1643,9 +1571,9 @@ def main() -> int:
     print(f"mixed path: verify_tally over {n} votes, tally {tally}, "
           f"{len(m_bad)} rejected, launches {mixed_launches} "
           f"(first call, adds included, {first_mixed_ms:.1f} ms)")
-    mixed_ms = time_host(mv.verify_tally, 3, before=sigcache.invalidate_all)
+    mixed_ms = time_host(lambda: tally_and_words(mv), 3, before=sigcache.invalidate_all)
     sigcache.DEFAULT.set_enabled(False)
-    mixed_off_ms = time_host(mv.verify_tally, 3)
+    mixed_off_ms = time_host(lambda: tally_and_words(mv), 3)
     sigcache.DEFAULT.set_enabled(True)
     print(f"end to end mixed verify_tally, cold: {mixed_ms:.3f} ms median of 3; "
           f"cache off {mixed_off_ms:.3f} ms [{card}]")
@@ -1710,7 +1638,7 @@ def main() -> int:
         entry["obs_launches"] = (obs["launches"][name] + obs["mixed_launches"][name]
                                  + obs["cost_launches"][name])
 
-    # 10c. the lane split across the mesh
+    # 10c. the sharded steps across a mesh
     mixed = {kind: args_of(kind) + (m_expect[lanes_of[kind]],) for kind in CURVE_ORDER}
     mesh = mesh_phase(pks, msgs, sigs, expect, mixed, card)
     for entry, key in zip(entries, ("launches", "sr25519_launches", "secp256k1_launches")):

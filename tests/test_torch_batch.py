@@ -15,6 +15,7 @@ from tmtpu.types.vote import Vote
 from tmtpu_torch.crypto import batch
 from tmtpu_torch.crypto import ed25519 as ed
 from tmtpu_torch.crypto import sigcache
+from tmtpu_torch.libs import trace
 from tmtpu_torch.types import vote as tvote
 
 CHAIN_ID = "test-chain-port"
@@ -103,6 +104,33 @@ def test_verifier_matches_reference_cpu_verifier(tally):
     else:
         assert port.verify() == refv.verify()
     assert not all(port.verify()[1]) and any(port.verify()[1])
+
+
+def test_bit_words_are_packed_on_the_first_read_only():
+    """``verify_tally`` packs nothing; the first read of ``bit_words``
+    packs the mask once under its span, later reads and a ``verify`` leave
+    the words as they are, and the next ``verify_tally`` is packed anew."""
+    from tests.test_torch_mixed import _words
+
+    items = _vote_set(40)
+    port = batch.TorchBatchVerifier(device="cpu")
+    for seed, msg, sig, power in items:
+        port.add(ed.PrivKeyEd25519(seed).pub_key(), msg, sig, power)
+    assert port.bit_words is None
+    trace.drain()
+    _ok, mask, _tally = port.verify_tally()
+    assert "crypto.pack_words" not in {sp.name for sp in trace.drain()}
+    words = port.bit_words
+    assert [(sp.name, sp.attrs) for sp in trace.drain()] == [
+        ("crypto.pack_words", {"lanes": 40})]
+    np.testing.assert_array_equal(words, _words(mask).astype(np.uint32))
+    port.verify()
+    trace.drain()
+    assert port.bit_words is words and not trace.drain()
+    port.add(ed.PrivKeyEd25519(items[0][0]).pub_key(), b"another", bytes(64), 5)
+    _ok, mask, _tally = port.verify_tally()
+    np.testing.assert_array_equal(port.bit_words, _words(mask).astype(np.uint32))
+    assert len(mask) == 41 and not mask[-1]
 
 
 def test_empty_verifier():

@@ -3,7 +3,8 @@
 written by the reference's own writer, with and without the
 ``TMTPU_<SECTION>_<FIELD>`` overrides, and ``python -m tmtpu_torch sidecar
 --home H`` (the plain versions, no warm-up) listening and limiting where the
-file says, flags winning over it, and ``mesh_devices`` left to the flag."""
+file says, flags winning over it, and ``mesh_devices`` accepted but never
+applied: the daemon serves one card."""
 
 import dataclasses
 import os
@@ -205,9 +206,9 @@ def test_home_config_sets_address_limits_and_cache(home):
                                    "request_deadline_s": 4.0}
         assert stats["sigcache"]["enabled"] is False
         assert stats["engine"]["failure_threshold"] == 7
-        # mesh_devices = 0 in the file (every chip, in the reference) leaves
-        # the port's mesh off: only the flag opts in
-        assert stats["mesh"]["mesh_devices"] == 1
+        # mesh_devices = 0 in the file (every chip, in the reference) is
+        # accepted and not applied: the daemon serves one card
+        assert "mesh" not in stats
     finally:
         d.stop()
 
@@ -215,14 +216,13 @@ def test_home_config_sets_address_limits_and_cache(home):
 def test_flags_beat_the_file(home, tmp_path):
     other = f"unix://{tmp_path / 'from-flag.sock'}"
     d = _Daemon(home, "--addr", other, "--max-lanes", "55", "--max-queue-lanes", "66",
-                "--mesh-devices", "4", "--health-laddr", "127.0.0.1:0")
+                "--health-laddr", "127.0.0.1:0")
     try:
         assert d.addr == other and " health=127.0.0.1:" in d.ready
         stats, ack = d.stats()
         assert ack.max_lanes == 55
         assert stats["limits"]["max_queue_lanes"] == 66
         assert stats["limits"]["request_deadline_s"] == 4.0  # no flag: the file's
-        assert stats["mesh"]["mesh_devices"] == 4
     finally:
         d.stop()
 

@@ -51,7 +51,7 @@ def test_every_module_imports_without_jax_or_tmtpu():
 
 def test_entry_points_mesh_and_bench_are_covered():
     names = _module_names()
-    assert {"tmtpu_torch.entry", "tmtpu_torch.gpu.mesh_dispatch", "bench_torch"} <= set(names)
+    assert {"tmtpu_torch.entry", "tmtpu_torch.gpu.sharding", "bench_torch"} <= set(names)
 
 
 def test_host_prep_and_cache_are_covered():
@@ -96,9 +96,9 @@ _GPU_TOOLS = sorted(f for f in os.listdir(os.path.join(ROOT, "tools"))
                     if f.startswith("gpu_") and f.endswith(".py"))
 # node-side: import tmtpu, reach the port only through the daemon's process
 NODE_SIDE = ("gpu_common.py", "gpu_light_bench.py", "gpu_live_round.py",
-             "gpu_localnet_ab.py", "gpu_localnet_mesh_ab.py")
+             "gpu_localnet_ab.py")
 # port-side: import tmtpu_torch, torch and numpy, as bench_torch.py does
-PORT_SIDE = ("gpu_breakdown.py", "gpu_curve_bench.py", "gpu_flush_ab.py", "gpu_port_common.py")
+PORT_SIDE = ("gpu_breakdown.py", "gpu_curve_bench.py", "gpu_port_common.py")
 
 
 def _import_behind_hook(names, blocked):

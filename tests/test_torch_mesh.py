@@ -1,13 +1,15 @@
-"""The port's lane split (tmtpu_torch/gpu/mesh_dispatch.py and the sharded
-half of gpu/sharding.py) on four CPU shards, against the reference's mesh
-dispatch on its 4-device virtual CPU mesh (tests/conftest.py), the port's
-single-device path, the per-lane oracles and the reference's
-CPUBatchVerifier. Every comparison is exact: masks, tallies, bitarray
-words and cache_stats bit for bit.
+"""The sharded half of the port's gpu/sharding.py on four CPU shards: the
+steps that ``entry.dryrun_multichip`` certifies and ``bench_torch.py
+--flood`` measures, against the reference's sharded steps on its virtual
+CPU mesh (tests/conftest.py), the port's single-device path, the per-lane
+oracles and the reference's CPUBatchVerifier. Every comparison is exact:
+masks, tallies and bitarray words bit for bit.
 
 CPU shards run one after another through the plain PyTorch versions,
 seconds a shard whatever its width, so the corpora stay at a few hundred
 lanes."""
+
+import itertools
 
 import numpy as np
 import pytest
@@ -19,45 +21,52 @@ from tests import torch_corpus as corpus
 from tests.test_torch_mixed import _words, mixed_items
 from tmtpu.crypto import batch as jbatch
 from tmtpu.crypto import ed25519 as jed
-from tmtpu.libs import breaker as jbk
-from tmtpu.tpu import mesh_dispatch as jmd
+from tmtpu.tpu import k1_verify as jkv
 from tmtpu.tpu import sharding as jsh
+from tmtpu.tpu import sr_verify as jsrv
+from tmtpu.tpu import verify as jtv
 from tmtpu_torch.crypto import batch, sigcache
-from tmtpu_torch.gpu import k1_kernel, kernel, mesh_dispatch as md, sharding as sh
+from tmtpu_torch.gpu import k1_kernel, kernel, sharding as sh
+from tmtpu_torch.gpu import k1_verify as kv
+from tmtpu_torch.gpu import sr_verify as sv
 from tmtpu_torch.gpu import verify as tv
 
 CPU4 = (torch.device("cpu"),) * 4
 
 
 @pytest.fixture(autouse=True)
-def _fresh_port_state():
-    """An empty, enabled port signature cache and zeroed mesh counters for
-    every test; the mesh knobs back at the port's defaults after."""
+def _fresh_port_sigcache():
+    """An empty, enabled port signature cache for every test."""
     sigcache.DEFAULT.set_enabled(True)
     sigcache.DEFAULT.invalidate_all()
-    md.reset()
     yield
     sigcache.DEFAULT.invalidate_all()
-    md.set_overrides(**md.DEFAULTS)
-    md.reset()
 
 
-@pytest.fixture
-def mesh4(monkeypatch):
-    """Four shards on the CPU, every flush routed (the reference's fixture,
-    tests/test_mesh_dispatch.py)."""
-    monkeypatch.setenv("TMTPU_MESH_DEVICES", "4")
-    monkeypatch.setenv("TMTPU_SHARD_MIN_LANES", "1")
-    jmd.reset()
-    jmd.breaker().reset()
-    yield
-    jmd.reset()
-    jmd.breaker().reset()
-    jbk.get(jbatch.BREAKER_NAME).reset()
+def _sharded_tally(pks, msgs, sigs, powers, mesh=CPU4):
+    """ed25519 verify + tally through ``sharded_verify_tally``, as
+    ``entry.dryrun_multichip`` calls it: (mask, exact tally) on the host."""
+    packed, host_ok = tv.prepare_batch_packed(pks, msgs, sigs)
+    mask, sums = sh.sharded_verify_tally(mesh)(packed, sh.power_limbs(powers), host_ok)
+    return mask.numpy(), sh.combine_limbs(sums.tolist())
+
+
+_MASK_STEPS = {
+    batch.ED25519: (tv.prepare_batch_packed, sh.sharded_verify_ed),
+    batch.SR25519: (sv.prepare_sr_batch_packed, sh.sharded_verify_sr),
+    batch.SECP256K1: (kv.prepare_k1_batch_packed, sh.sharded_verify_k1),
+}
+
+
+def _sharded_mask(curve, pks, msgs, sigs, mesh=CPU4):
+    """One curve's mask through its lane-sharded step and the host checks."""
+    prep, build = _MASK_STEPS[curve]
+    packed, host_ok = prep(pks, msgs, sigs)
+    return build(mesh)(packed).numpy() & host_ok
 
 
 def _ed_batch(n, tag, bad=()):
-    """The reference's mesh corpus (tests/test_mesh_dispatch.py): n distinct
+    """The reference's mesh corpus (its tests of the split): n distinct
     keys, powers 100 + 7i, a flipped first signature byte at ``bad``."""
     pks, msgs, sigs, powers = [], [], [], []
     for i in range(n):
@@ -101,24 +110,24 @@ def test_shard_bounds_and_make_mesh():
         sh.sharded_verify_tally((torch.device("cpu"), torch.device("meta")))
 
 
-def test_mesh_tally_matches_reference_mesh(mesh4):
+def test_mesh_tally_matches_reference_mesh(monkeypatch):
     """The acceptance scenario at the reference's tier-1 shape: 128 lanes,
-    3 corrupt, on four CPU shards against the reference's sharded flush on
-    its 4-device virtual mesh."""
+    3 corrupt, on four CPU shards against the reference's sharded step
+    (``sharded_verify_tally_packed``) on four of its virtual devices."""
     pks, msgs, sigs, powers = _ed_batch(128, b"mesh-eq", bad={3, 17, 100})
-    want_mask, want_tally = jmd.batch_verify_tally_mesh(pks, msgs, sigs, powers)
-    mask, tally = md.batch_verify_tally_mesh(pks, msgs, sigs, powers, device="cpu")
-    np.testing.assert_array_equal(mask, np.asarray(want_mask))
-    assert isinstance(tally, int) and tally == want_tally
+    packed, host_ok = jtv.prepare_batch_packed(pks, msgs, sigs)
+    limbs = jsh.powers_to_limbs(np.where(host_ok, np.asarray(powers, dtype=np.int64), 0))
+    want_mask, want_sums, want_bits = jsh.sharded_verify_tally_packed(jsh.make_mesh(4))(
+        jnp.asarray(packed), jnp.asarray(limbs), jtv.base_table_f32())
+    want_mask = np.asarray(want_mask) & host_ok
+    widths = _spy_widths(monkeypatch, kernel, "verify_packed")
+    mask, tally = _sharded_tally(pks, msgs, sigs, powers)
+    np.testing.assert_array_equal(mask, want_mask)
+    assert isinstance(tally, int) and tally == jsh.limb_sums_to_int(want_sums)
     assert tally == sum(p for i, p in enumerate(powers) if i not in (3, 17, 100))
     np.testing.assert_array_equal(sh.pack_bitarray(torch.from_numpy(mask)).numpy()
-                                  .astype(np.uint32),
-                                  np.asarray(jsh.pack_bitarray(jnp.asarray(want_mask))))
-    snap = md.snapshot()
-    assert snap["devices"] == 4 and snap["dispatches"] == 1 and snap["shard_min_lanes"] == 1
-    assert snap["last"]["shard_lanes"] == [32, 32, 32, 32]
-    assert snap["occupancy_lanes"] == {"0": 32, "1": 32, "2": 32, "3": 32}
-    assert "breaker" not in snap
+                                  .astype(np.uint32), np.asarray(want_bits))
+    assert widths == [32, 32, 32, 32]
 
 
 @pytest.fixture(scope="module")
@@ -135,25 +144,24 @@ def ragged_corpus():
 
 
 @pytest.mark.parametrize("b", [1, 31, 32, 33, 127, 129, 200])
-def test_ragged_widths_split_without_pad_lanes(b, ragged_corpus, mesh4, monkeypatch):
+def test_ragged_widths_split_without_pad_lanes(b, ragged_corpus, monkeypatch):
     """Each non-empty shard gets exactly its lanes (no pads, empty shards
     neither copy nor launch); mask, tally and bitarray equal the
     single-device path and the oracle."""
     pks, msgs, sigs, want = ragged_corpus
     widths = _spy_widths(monkeypatch, kernel, "verify_packed")
     powers = [100 + 7 * i for i in range(b)]
-    mask, tally = md.batch_verify_tally_mesh(pks[:b], msgs[:b], sigs[:b], powers, device="cpu")
+    mask, tally = _sharded_tally(pks[:b], msgs[:b], sigs[:b], powers)
     sizes = [hi - lo for lo, hi in sh.shard_bounds(b, 4)]
     assert widths == sizes and sum(sizes) == b
     np.testing.assert_array_equal(mask, want[:b])
     assert tally == sum(p for p, ok in zip(powers, want[:b]) if ok)
     np.testing.assert_array_equal(sh.pack_words(mask, "cpu"),
                                   _words(want[:b]).astype(np.uint32))
-    assert md.snapshot()["last"]["shard_lanes"] == sizes + [0] * (4 - len(sizes))
 
 
 @pytest.mark.parametrize("copies, huge", [(8, False), (9, True)])
-def test_tally_past_2_63_split_across_shards(copies, huge, mesh4):
+def test_tally_past_2_63_split_across_shards(copies, huge):
     """Copies of one precommit at 2^60 on every shard among valid lanes of
     power 1: each shard's sum stays under 2^63, the flush's does not; with
     ``huge`` one lane's power is past 2^64 (three limbs)."""
@@ -165,7 +173,7 @@ def test_tally_past_2_63_split_across_shards(copies, huge, mesh4):
         pks[j], msgs[j], sigs[j], powers[j] = pks[0], msgs[0], sigs[0], 2**60
     if huge:
         powers[70] = 2**64 + 3
-    mask, tally = md.batch_verify_tally_mesh(pks, msgs, sigs, powers, device="cpu")
+    mask, tally = _sharded_tally(pks, msgs, sigs, powers)
     assert mask.all() and tally == sum(powers) and tally >= 2**63
     assert {j // 32 for j in at} == {0, 1, 2, 3}
     single_mask, single_tally = sh.batch_verify_tally(pks, msgs, sigs, powers, device="cpu")
@@ -174,7 +182,7 @@ def test_tally_past_2_63_split_across_shards(copies, huge, mesh4):
 
 
 @pytest.mark.parametrize("curve", [batch.SR25519, batch.SECP256K1])
-def test_sharded_sr_k1_masks_against_oracles(curve, mesh4, monkeypatch):
+def test_sharded_sr_k1_masks_against_oracles(curve, monkeypatch):
     if curve == batch.SR25519:
         parts = [corpus.sr_signed(40, 53), corpus.sr_adversarial()]
         oracle, module, name = corpus.sr_oracle, kernel, "sr_verify_packed"
@@ -183,63 +191,34 @@ def test_sharded_sr_k1_masks_against_oracles(curve, mesh4, monkeypatch):
         oracle, module, name = corpus.k1_oracle, k1_kernel, "verify_packed"
     pks, msgs, sigs = (sum(cols, []) for cols in zip(*parts))
     widths = _spy_widths(monkeypatch, module, name)
-    mask = md.batch_verify_mesh(curve, pks, msgs, sigs, device="cpu")
+    mask = _sharded_mask(curve, pks, msgs, sigs)
     want = oracle(pks, msgs, sigs)
     assert not want.all() and want.any()
     np.testing.assert_array_equal(mask, want)
     assert widths == [hi - lo for lo, hi in sh.shard_bounds(len(sigs), 4)] and len(widths) >= 2
-    assert md.snapshot()["last"]["curve"] == curve
 
 
 @pytest.mark.slow  # two fresh curve-graph compiles on XLA:CPU (minutes)
-def test_sharded_sr_k1_match_reference_mesh(mesh4):
-    """Against the reference's sharded sr25519 and secp256k1 graphs on its
-    4-device mesh (tests/test_mesh_dispatch.py's slow twin)."""
-    for curve, (pks, msgs, sigs) in ((batch.SR25519, corpus.sr_signed(64, 55)),
-                                     (batch.SECP256K1, corpus.k1_signed(64, 56))):
+def test_sharded_sr_k1_match_reference_mesh():
+    """Against the reference's sharded sr25519 and secp256k1 steps on four
+    of its virtual devices (the slow twin of its own tests of the split)."""
+    mesh = jsh.make_mesh(4)
+    for curve, (pks, msgs, sigs), prep, build, table in (
+            (batch.SR25519, corpus.sr_signed(64, 55), jsrv.prepare_sr_batch_packed,
+             jsh.sharded_verify_sr, jtv.base_table_f32),
+            (batch.SECP256K1, corpus.k1_signed(64, 56), jkv.prepare_k1_batch_packed,
+             jsh.sharded_verify_k1, jkv.base_table_f32)):
         sigs[3] = corpus.flip(sigs[3], 1)
-        want = jmd.batch_verify_mesh(curve, pks, msgs, sigs)
-        mask = md.batch_verify_mesh(curve, pks, msgs, sigs, device="cpu")
-        np.testing.assert_array_equal(mask, np.asarray(want))
+        packed, host_ok = prep(pks, msgs, sigs)
+        want = np.asarray(build(mesh)(jnp.asarray(packed), table())) & host_ok
+        mask = _sharded_mask(curve, pks, msgs, sigs)
+        np.testing.assert_array_equal(mask, want)
         assert not mask[3] and mask.sum() == 63
 
 
-def test_route_threshold_mesh_devices_and_env(monkeypatch):
-    monkeypatch.delenv("TMTPU_MESH_DEVICES", raising=False)
-    monkeypatch.delenv("TMTPU_SHARD_MIN_LANES", raising=False)
-    # the port ships the mesh off (mesh_devices 1), where the reference's
-    # default is 0, every device
-    assert md.mesh_devices() == 1 and md.shard_min_lanes() == 2048
-    assert not md.route(batch.ED25519, 10_000, "cpu")
-    # mesh_devices 0 on the CPU is one shard: the mesh is off
-    md.set_overrides(mesh_devices=0)
-    assert not md.route(batch.ED25519, 10_000, "cpu")
-    md.set_overrides(mesh_devices=4, shard_min_lanes=64)
-    assert md.mesh_for("cpu") == CPU4
-    assert not md.route(batch.ED25519, 63, "cpu")
-    assert md.route(batch.ED25519, 64, "cpu")
-    # the env overrides the knobs, read at call time
-    monkeypatch.setenv("TMTPU_SHARD_MIN_LANES", "100")
-    assert not md.route(batch.ED25519, 64, "cpu")
-    monkeypatch.setenv("TMTPU_SHARD_MIN_LANES", "not-a-number")
-    assert md.route(batch.ED25519, 64, "cpu")
-    # mesh_devices 1 is the off switch: no two-shard mesh can exist
-    monkeypatch.setenv("TMTPU_MESH_DEVICES", "1")
-    assert not md.route(batch.ED25519, 10_000, "cpu")
-    with pytest.raises(md.MeshUnavailable):
-        md.batch_verify_tally_mesh([b"x"], [b"m"], [b"s"], [1], device="cpu")
-    md.configure(type("Crypto", (), {"mesh_devices": 0, "shard_min_lanes": 2048})())
-    monkeypatch.delenv("TMTPU_MESH_DEVICES")
-    monkeypatch.delenv("TMTPU_SHARD_MIN_LANES")
-    assert md.mesh_devices() == 0 and md.shard_min_lanes() == 2048
-    # a config object without the knobs gives the port's defaults
-    md.configure(object())
-    assert md.mesh_devices() == 1 and md.shard_min_lanes() == 2048
-
-
 @pytest.mark.parametrize("tally", [True, False])
-def test_failed_shard_raises_without_fallback(tally, mesh4, monkeypatch):
-    """A shard that raises makes the flush raise: the mesh never hands the
+def test_failed_shard_raises_without_fallback(tally, monkeypatch):
+    """A shard that raises makes the sharded step raise: it never hands the
     lanes to the single-device path or the CPU."""
     calls = []
 
@@ -256,11 +235,12 @@ def test_failed_shard_raises_without_fallback(tally, mesh4, monkeypatch):
     monkeypatch.setattr(sh, "batch_verify_tally", no_fallback)
     monkeypatch.setattr(tv, "batch_verify", no_fallback)
     pks, msgs, sigs, powers = _ed_batch(40, b"mesh-fail")
-    bv = batch.TorchBatchVerifier(device="cpu")
-    bv.add_lanes(batch.ED25519, pks, msgs, sigs, powers)
     with pytest.raises(RuntimeError, match="shard 1 fell over"):
-        bv.verify_tally() if tally else bv.verify()
-    assert calls == [32, 8] and md.dispatch_count() == 0
+        if tally:
+            _sharded_tally(pks, msgs, sigs, powers)
+        else:
+            _sharded_mask(batch.ED25519, pks, msgs, sigs)
+    assert calls == [32, 8]
 
 
 def test_cuda_mesh_without_a_card_raises():
@@ -270,52 +250,54 @@ def test_cuda_mesh_without_a_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sh.make_mesh(2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        md.batch_verify_tally_mesh(pks, msgs, sigs, powers)
+        sh.make_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        md.batch_verify_tally_mesh(pks, msgs, sigs, powers, mesh=("cuda",) * 2)
+        _sharded_tally(pks, msgs, sigs, powers, mesh=("cuda",) * 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        md.route(batch.ED25519, 10_000)
-
-
-def _flush(items, tally):
-    bv = batch.TorchBatchVerifier(device="cpu")
-    for port_key, _ref_key, msg, sig, power in items:
-        bv.add(port_key, msg, sig, power)
-    out = bv.verify_tally() if tally else bv.verify()
-    return bv, out
+        _sharded_mask(batch.ED25519, pks, msgs, sigs, mesh=("cuda",) * 2)
 
 
 @pytest.mark.parametrize("tally", [True, False])
 def test_verifier_mixed_flush_on_four_shards(tally, monkeypatch):
-    """A mixed-curve TorchBatchVerifier flush, cache on, with repeated
-    items, routed across four CPU shards: one mesh dispatch per curve, and
-    the mask, tally, bitarray and cache_stats of the unsharded verifier and
-    the reference's CPUBatchVerifier."""
+    """A mixed-curve set with repeated items: each curve's lanes through its
+    sharded step on four CPU shards give the mask, tally and bitarray of
+    the single-device verifier (cache on) and the reference's
+    CPUBatchVerifier."""
     items = mixed_items([batch.ED25519, batch.SR25519, batch.ED25519, batch.SECP256K1], n=160)
     items += items[:6]  # relayed a second time: folded onto their first lane
-    monkeypatch.setenv("TMTPU_SHARD_MIN_LANES", "1")
-    monkeypatch.setenv("TMTPU_MESH_DEVICES", "4")
+    single = batch.TorchBatchVerifier(device="cpu")
+    for port_key, _ref_key, msg, sig, power in items:
+        single.add(port_key, msg, sig, power)
+    got = single.verify_tally() if tally else single.verify()
+    assert single.cache_stats == {"lanes": 166, "hits": 0, "dedup": 6, "dispatched": 160}
+
     widths = {curve: _spy_widths(monkeypatch, mod, name)
               for curve, mod, name in ((batch.ED25519, kernel, "verify_packed"),
                                        (batch.SR25519, kernel, "sr_verify_packed"),
                                        (batch.SECP256K1, k1_kernel, "verify_packed"))}
-    sharded, got = _flush(items, tally)
-    assert md.dispatch_count() == 3 and sharded.mesh_dispatches == 3
-    assert widths == {batch.ED25519: [32, 32, 16], batch.SR25519: [32, 8],
-                      batch.SECP256K1: [32, 8]}
-
-    monkeypatch.setenv("TMTPU_MESH_DEVICES", "1")
-    sigcache.DEFAULT.invalidate_all()
-    single, want = _flush(items, tally)
-    assert md.dispatch_count() == 3 and single.mesh_dispatches == 0
-    assert got == want and sharded.cache_stats == single.cache_stats
-    assert sharded.cache_stats == {"lanes": 166, "hits": 0, "dedup": 6, "dispatched": 160}
+    mask = np.zeros(len(items), dtype=bool)
+    tallied = 0
+    for curve in _MASK_STEPS:
+        idx = [i for i, item in enumerate(items) if item[0].type_value() == curve]
+        keys, _ref_keys, msgs, sigs, powers = (list(col) for col in
+                                               zip(*(items[i] for i in idx)))
+        pks = [key.bytes() for key in keys]
+        if curve == batch.ED25519 and tally:
+            m, ed_sum = _sharded_tally(pks, msgs, sigs, powers)
+            tallied += ed_sum
+        else:
+            m = _sharded_mask(curve, pks, msgs, sigs)
+            tallied += sum(itertools.compress(powers, m.tolist()))
+        mask[idx] = m
+        assert widths[curve] == [hi - lo for lo, hi in sh.shard_bounds(len(idx), 4)]
+    sharded = (bool(mask.all()), mask.tolist(), tallied)
+    assert got == (sharded if tally else sharded[:2])
 
     refv = jbatch.CPUBatchVerifier()
     for _port_key, ref_key, msg, sig, power in items:
         refv.add(ref_key, msg, sig, power)
     assert got == (refv.verify_tally() if tally else refv.verify())
-    assert sharded.cache_stats == refv.cache_stats
+    assert single.cache_stats == refv.cache_stats
     if tally:
-        np.testing.assert_array_equal(sharded.bit_words, single.bit_words)
-        np.testing.assert_array_equal(sharded.bit_words, _words(got[1]).astype(np.uint32))
+        np.testing.assert_array_equal(single.bit_words, sh.pack_words(mask, "cpu"))
+        np.testing.assert_array_equal(single.bit_words, _words(got[1]).astype(np.uint32))

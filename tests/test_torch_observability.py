@@ -1,6 +1,6 @@
 """The device path's observability in the port (tmtpu_torch/libs/: the span
-ring, the metric registry, and their call sites on the flush, the mesh and
-the sidecar daemon) held against the reference's (tmtpu/libs/) on the CPU,
+ring, the metric registry, and their call sites on the flush and the
+sidecar daemon) held against the reference's (tmtpu/libs/) on the CPU,
 where the port runs its plain versions.
 
 - Span names: the port records the reference's names (parsed from the
@@ -34,6 +34,7 @@ from tests import torch_corpus as corpus
 from tests.test_torch_mixed import mixed_items
 from tests.test_torch_sidecar import (DEADLINE_S, _connect_raw, _fix_window,  # noqa: F401
                                       _fresh_port_sigcache, _lanes)
+from tests.test_torch_sidecar_health import UNREGISTERED as SIDECAR_UNREGISTERED
 from tmtpu.crypto import batch as jbatch
 from tmtpu.libs import metrics as jm
 from tmtpu.libs import trace as jtrace
@@ -41,7 +42,6 @@ from tmtpu.sidecar.client import SidecarClient
 from tmtpu.sidecar.server import SidecarServer as RefServer
 from tmtpu.tpu import sharding as jsh
 from tmtpu_torch.crypto import batch
-from tmtpu_torch.gpu import mesh_dispatch as md
 from tmtpu_torch.gpu import sharding
 from tmtpu_torch.libs import metrics, trace
 from tmtpu_torch.sidecar import protocol as proto
@@ -51,19 +51,21 @@ from tmtpu_torch.sidecar.server import SidecarServer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
-CPU4 = (CPU,) * 4
 
 # the reference's spans the port does not record, each with its reason
 NOT_RECORDED = {
     "ed25519.pad": "the port pads no lane; the power limbs the reference builds "
                    "in this stage are built in the port's upload, under "
                    "ed25519.device_put",
+    "crypto.mesh_verify_tally": "the port's verifier uses one device: no flush splits "
+                                "across cards",
+    "crypto.mesh_verify": "the port's verifier uses one device: no flush splits across cards",
 }
 
 # the port's spans the reference does not record, each with its reason
 _DAEMON = "the port's daemon times each request's path outside the flush's tree"
 PORT_ONLY = {
-    "crypto.pack_words": "the device bit pack of verify_tally and its readback, which "
+    "crypto.pack_words": "the device bit pack of bit_words and its readback, which "
                          "the reference fuses into its XLA step",
     "sigcache.resolve": "the signature cache's one C call and the bookkeeping up to the "
                         "lanes to dispatch",
@@ -81,6 +83,7 @@ PORT_ONLY = {
 }
 
 # the reference's crypto families the port does not register, each with its reason
+_ONE_DEVICE = "the port's verifier uses one device: no flush splits across cards"
 UNREGISTERED = {
     "tendermint_crypto_cpu_fallback_total": "no CPU fallback",
     "tendermint_crypto_breaker_state": "no breaker",
@@ -90,6 +93,11 @@ UNREGISTERED = {
     "tendermint_crypto_device_probe_attempts_total": "no device probe",
     "tendermint_crypto_device_probe_timeouts_total": "no device probe",
     "tendermint_crypto_mesh_fallback_total": "no fallback off the mesh",
+    "tendermint_crypto_mesh_devices": _ONE_DEVICE,
+    "tendermint_crypto_mesh_dispatches_total": _ONE_DEVICE,
+    "tendermint_crypto_mesh_shard_lanes": _ONE_DEVICE,
+    "tendermint_crypto_mesh_pad_ratio": _ONE_DEVICE,
+    "tendermint_crypto_mesh_psum_seconds": _ONE_DEVICE,
     "tendermint_crypto_flush_gather_waits_total": "a node's receive loop waits, not the daemon",
 }
 
@@ -98,10 +106,12 @@ UNREGISTERED = {
 
 
 def _reference_span_names():
-    """Every ``trace.span("...")`` literal of the reference's device path."""
+    """Every ``trace.span("...")`` literal of the reference's device path,
+    the modules of tmtpu/tpu/."""
     names = set()
-    for mod in ("verify", "sharding", "sr_verify", "k1_verify", "mesh_dispatch"):
-        with open(os.path.join(ROOT, "tmtpu", "tpu", mod + ".py"), encoding="utf-8") as fh:
+    tpu = os.path.join(ROOT, "tmtpu", "tpu")
+    for name in sorted(f for f in os.listdir(tpu) if f.endswith(".py")):
+        with open(os.path.join(tpu, name), encoding="utf-8") as fh:
             tree = ast.parse(fh.read())
         for node in ast.walk(tree):
             if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
@@ -127,10 +137,9 @@ def _ed_lanes(n, seed):
 @pytest.fixture(scope="module")
 def flushes():
     """Spans of the port's flushes on the CPU, with the cache off so each
-    flush dispatches: a 64-lane ed25519 verify_tally and verify, a mixed
-    set of 8 lanes a curve, and a four-shard mesh (ed25519 verify_tally at
-    128 lanes, four shards of 32, and verify at 32), which sets the
-    ``crypto_mesh_devices`` gauge to 4."""
+    flush dispatches: a 64-lane ed25519 verify_tally and verify, and a
+    mixed set of 8 lanes a curve; each verify_tally's ``bit_words`` is read
+    inside, so its pack is among the spans."""
     from tmtpu_torch.crypto import sigcache
 
     sigcache.DEFAULT.set_enabled(False)
@@ -141,7 +150,11 @@ def flushes():
         def flush(tally):
             bv = batch.TorchBatchVerifier(CPU)
             bv.add_lanes("ed25519", pks, msgs, sigs, powers)
-            return bv.verify_tally() if tally else bv.verify()
+            if not tally:
+                return bv.verify()
+            got = bv.verify_tally()
+            assert bv.bit_words is not None
+            return got
 
         out["ed25519 tally"] = _spans_of(lambda: flush(True))
         out["ed25519 mask"] = _spans_of(lambda: flush(False))
@@ -151,19 +164,14 @@ def flushes():
             bv = batch.TorchBatchVerifier(CPU)
             for key, _ref_key, msg, sig, power in items:
                 bv.add(key, msg, sig, power)
-            return bv.verify_tally()
+            got = bv.verify_tally()
+            assert bv.bit_words is not None
+            return got
 
         out["mixed"] = _spans_of(mixed)
-        pks, msgs, sigs, powers = _ed_lanes(128, 62)
-        out["mesh tally"] = _spans_of(lambda: md.batch_verify_tally_mesh(
-            pks, msgs, sigs, powers, device=CPU, mesh=CPU4))
-        assert metrics.crypto_mesh_devices.value() == 4
-        out["mesh mask"] = _spans_of(lambda: md.batch_verify_mesh(
-            "ed25519", pks[:32], msgs[:32], sigs[:32], device=CPU, mesh=CPU4))
         return out
     finally:
         sigcache.DEFAULT.set_enabled(True)
-        md.reset()
 
 
 def test_span_names_are_the_references_but_the_listed_exceptions(flushes):
@@ -212,7 +220,7 @@ def test_cached_flush_span_roots():
     pks, msgs, sigs, powers = _ed_lanes(64, 64)
     bv = batch.TorchBatchVerifier(CPU)
     bv.add_lanes("ed25519", pks, msgs, sigs, powers)
-    (ok, _mask, _tally), spans = _spans_of(bv.verify_tally)
+    (ok, _mask, _tally), spans = _spans_of(lambda: (bv.verify_tally(), bv.bit_words)[0])
     assert ok
     root = "crypto.batch_verify_tally"
     assert _tree(spans) == [("sigcache.resolve", None, 64), (root, None, 64),
@@ -243,17 +251,6 @@ def test_mixed_flush_records_one_execute_a_curve(flushes):
         {"impl": "torch", "lanes": 8}] * 2
     assert [sp.attrs for sp in spans if sp.name == "crypto.host_tally"] == [
         {"curve": "sr25519", "lanes": 8}, {"curve": "secp256k1", "lanes": 8}]
-
-
-def test_mesh_flush_spans(flushes):
-    (_mask, tally), spans = flushes["mesh tally"]
-    assert [(sp.name, sp.parent_id, sp.attrs) for sp in spans] == [
-        ("crypto.mesh_verify_tally", None,
-         {"curve": "ed25519", "lanes": 128, "shards": 4, "impl": "torch"})]
-    assert tally == sum(7 + i for i in range(128))
-    _mask, spans = flushes["mesh mask"]
-    assert [(sp.name, sp.attrs) for sp in spans] == [
-        ("crypto.mesh_verify", {"curve": "ed25519", "lanes": 32, "shards": 4})]
 
 
 def _stand_in_step():
@@ -296,7 +293,7 @@ def test_span_tree_matches_the_reference(monkeypatch):
     monkeypatch.setattr(jsh, "_fused_step", _stand_in_step)
     monkeypatch.setattr(jsh.tv, "use_pallas_kernel", lambda: False)
     reference = _reference_tree(8)
-    assert [t[0] for t in reference if t[0] in NOT_RECORDED] == list(NOT_RECORDED)
+    assert [t[0] for t in reference if t[0] in NOT_RECORDED] == ["ed25519.pad"]
     assert _port_tree(8) == _without_listed(reference)
 
 
@@ -317,6 +314,16 @@ def test_family_is_the_references(name):
     ref_kind, ref = jm.DEFAULT._metrics[name]
     assert (kind, fam.help, fam.label_names, getattr(fam, "buckets", None)) == \
         (ref_kind, ref.help, ref.label_names, getattr(ref, "buckets", None))
+
+
+@pytest.mark.parametrize("name", sorted(UNREGISTERED) + sorted(SIDECAR_UNREGISTERED))
+def test_unregistered_family_is_the_references_and_never_rendered(name):
+    """Each family the port leaves out is one of the reference's, and the
+    exposition of the port's registries, as the daemon's ``/metrics``
+    renders them, has no line of it."""
+    assert name in jm.DEFAULT._metrics and name not in PORT_FAMILIES
+    text = metrics.render(metrics.DEFAULT, SidecarMetrics().registry)
+    assert not re.search(rf"^(# (HELP|TYPE) )?{name}\b", text, re.M)
 
 
 def test_unregistered_crypto_families_are_the_listed_ones():

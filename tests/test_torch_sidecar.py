@@ -34,6 +34,7 @@ from tmtpu.sidecar.server import SidecarServer as RefServer
 from tmtpu_torch.crypto import batch, sigcache
 from tmtpu_torch.sidecar import client as port_client
 from tmtpu_torch.sidecar import protocol as proto
+from tmtpu_torch.sidecar.coalescer import Coalescer
 from tmtpu_torch.sidecar.server import SidecarServer, trace_ctx_valid
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -399,37 +400,6 @@ def test_identical_lanes_of_two_clients_share_lanes(tmp_path):
     assert stats == {"lanes": 8, "hits": 0, "dedup": 4, "dispatched": 4}
 
 
-def test_two_clients_split_across_four_cpu_shards(tmp_path):
-    """Two clients' lanes coalesce into one joint dispatch, and that
-    dispatch splits across the mesh (the daemon's ``mesh_devices`` and
-    ``shard_min_lanes``): each shard's lanes land in the Stats' ``mesh``
-    section (tests/test_mesh_dispatch.py's sidecar scenario)."""
-    from tmtpu_torch.gpu import mesh_dispatch
-
-    mesh_dispatch.reset()
-    try:
-        with _daemon("port", tmp_path, mesh_devices=4, shard_min_lanes=1) as srv:
-            _fix_window(srv, 0.5)
-            got = _concurrent(srv, {
-                "a": ("ed25519", _lanes(18, bad={1}, tag=b"mesh-sc-a"), True),
-                "b": ("ed25519", _lanes(22, bad={2}, tag=b"mesh-sc-b"), True)})
-            stats = srv.snapshot()
-    finally:
-        mesh_dispatch.set_overrides(**mesh_dispatch.DEFAULTS)
-        mesh_dispatch.reset()
-    mask_a, tallied_a, info_a = got["a"]
-    mask_b, tallied_b, info_b = got["b"]
-    assert mask_a == [i != 1 for i in range(18)] and tallied_a == 17 * 1000
-    assert mask_b == [i != 2 for i in range(22)] and tallied_b == 21 * 1000
-    assert info_a == info_b and info_a["dispatch_clients"] == 2
-    assert info_a["dispatch_lanes"] == 40
-    assert stats["coalescer"]["mesh_dispatches"] == 1
-    mesh = stats["mesh"]
-    assert mesh["devices"] == 4 and mesh["shard_min_lanes"] == 1 and mesh["dispatches"] == 1
-    assert mesh["occupancy_lanes"] == {"0": 32, "1": 8, "2": 0, "3": 0}
-    assert mesh["last"]["shard_lanes"] == [32, 8, 0, 0]
-
-
 @pytest.mark.parametrize("fault", ["raises", "short mask"])
 def test_engine_failure_answers_backend_down(tmp_path, fault):
     """An engine exception, or a mask of the wrong length, answers the
@@ -438,14 +408,13 @@ def test_engine_failure_answers_backend_down(tmp_path, fault):
     def engine(curve, *cols):
         if fault == "raises":
             raise RuntimeError("device lost")
-        return [True], 0
+        return [True]
 
     def scenario(srv):
         real = srv.coalescer._verify_fn
-        # the port's engine also reports its mesh dispatches (none here)
-        srv.coalescer._verify_fn = ((lambda *a: engine(*a) + (0,))
-                                    if isinstance(srv, SidecarServer)
-                                    else lambda curve, items, tally: engine(curve, items))
+        # the port's engine returns the mask, the reference's also a tally
+        srv.coalescer._verify_fn = (engine if isinstance(srv, SidecarServer)
+                                    else lambda curve, items, tally: (engine(curve, items), 0))
         with _client(srv, "f") as c:
             with pytest.raises(SidecarUnavailable) as err:
                 c.verify("ed25519", _lanes(3))
@@ -456,6 +425,53 @@ def test_engine_failure_answers_backend_down(tmp_path, fault):
     assert msg.startswith("sidecar status backend_down: verify engine")
     assert after == [True]
 
+
+@pytest.mark.parametrize("tally_a, tally_b", [(True, True), (True, False), (False, True),
+                                              (False, False)])
+def test_each_request_tallies_its_own_slice(tally_a, tally_b):
+    """The engine returns one joint mask; the coalescer answers each request
+    with its slice and the power of its slice's valid lanes (0 for a
+    verify-only request), and asks the engine for a tally when any request
+    wants one."""
+    calls = []
+
+    def engine(curve, pks, msgs, sigs, powers, tally):
+        calls.append((curve, len(sigs), powers, tally))
+        return [i % 3 != 1 for i in range(len(sigs))]
+
+    co = Coalescer(engine)
+    co.scheduler.fixed_wait_s = 0.5
+    co.start()
+    try:
+        cols = {name: ([b"k"] * n, [b"m"] * n, [b"s"] * n, [p * (i + 1) for i in range(n)])
+                for name, n, p in (("a", 5, 10), ("b", 4, 1000))}
+        a = co.submit("a", "ed25519", *cols["a"], tally=tally_a, deadline_s=DEADLINE_S)
+        b = co.submit("b", "ed25519", *cols["b"], tally=tally_b, deadline_s=DEADLINE_S)
+        assert a.wait(30) and b.wait(30)
+    finally:
+        co.stop()
+    assert calls == [("ed25519", 9, cols["a"][3] + cols["b"][3], tally_a or tally_b)]
+    mask = [i % 3 != 1 for i in range(9)]
+    assert (a.mask, b.mask) == (mask[:5], mask[5:])
+    assert a.tallied == (10 + 30 + 40 if tally_a else 0)
+    assert b.tallied == (1000 + 2000 + 4000 if tally_b else 0)
+    assert a.dispatch_id == b.dispatch_id == 1 and not a.error and not b.error
+
+
+def test_a_fault_wrapped_around_the_engine_reaches_the_reply(tmp_path, monkeypatch):
+    """``benchmark/tests/fault_host.py`` plants its faults by wrapping
+    ``SidecarServer._engine_verify`` and unpacking three values: the daemon
+    answers with the wrapper's mask, and the tally follows that mask."""
+    engine = SidecarServer._engine_verify
+
+    def flip_first(self, *cols):
+        mask, tallied, meshed = engine(self, *cols)
+        return [not mask[0]] + list(mask[1:]), tallied, meshed
+
+    monkeypatch.setattr(SidecarServer, "_engine_verify", flip_first)
+    with _daemon("port", tmp_path) as srv, _client(srv, "f") as c:
+        mask, tallied, _ = c.verify("ed25519", _lanes(4, bad={2}), tally=True)
+    assert mask == [False, True, False, True] and tallied == 2000
 
 def test_wrong_size_key_fails_the_whole_dispatch(tmp_path):
     """The reference's engine builds a key object from every lane, and a

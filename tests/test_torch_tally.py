@@ -7,6 +7,8 @@ they fold onto one lane, with it off each copy is a lane of its own. The
 ed25519 lanes are tallied on the device path, sr25519 and secp256k1 on the
 host; hits add theirs on the host. Both caches start fresh."""
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -122,10 +124,12 @@ def test_raw_lanes_tally_past_2_63(cache):
         refv.add(ref_key, msg, sig, P60)
     want = refv.verify_tally()
     pk = port_key.bytes()
-    mask, tallied, stats, meshed = batch.verify_lanes(
+    mask, stats = batch.verify_lanes(
         batch.ED25519, [pk] * 8, [msg] * 8, [sig] * 8, [P60] * 8, tally=True, device="cpu")
+    # the daemon's tally: the coalescer sums the powers of its slice's valid lanes
+    tallied = sum(itertools.compress([P60] * 8, mask))
     assert (all(mask), mask, tallied) == want and tallied == 2**63
-    assert stats == refv.cache_stats and meshed == 0
+    assert stats == refv.cache_stats
 
 
 @pytest.mark.parametrize("powers", [

@@ -1,10 +1,9 @@
 """The last device tools of the port, on the CPU at small sizes, each run as
 a script in a process whose import hook refuses what its rule forbids:
 
-- node-side tools (``tools/gpu_light_bench.py``,
-  ``tools/gpu_localnet_mesh_ab.py``) drive unmodified tmtpu code against
-  the port's sidecar daemon; their hook refuses ``jax``, ``torch``,
-  ``tmtpu_torch`` and ``cryptography``;
+- the node-side tool (``tools/gpu_light_bench.py``) drives unmodified
+  tmtpu code against the port's sidecar daemon; its hook refuses ``jax``,
+  ``torch``, ``tmtpu_torch`` and ``cryptography``;
 - port-side tools (``tools/gpu_curve_bench.py``, ``tools/gpu_breakdown.py``)
   drive the port's modules; their hook refuses ``jax`` and ``tmtpu``.
 
@@ -140,22 +139,6 @@ def test_forged_commit_stops_the_run_at_the_same_header(tmp_path):
     assert on_daemon[0] == in_process[0] == k - 2
     assert isinstance(on_daemon[1], verifier.ErrInvalidHeader)
     assert type(on_daemon[1]) is type(in_process[1])
-
-
-def test_gpu_localnet_mesh_ab_on_four_cpu_shards():
-    *_, out = run_tool(NODE_SIDE_BLOCKED, "tools/gpu_localnet_mesh_ab.py", "8",
-                       "--device", "cpu", "--mesh-devices", "4", timeout=900)
-    single, mesh = out["single_device"], out["mesh"]
-    assert out["ok"] is True and out["failures"] == []
-    assert out["single_arm_mesh_dispatches"] == single["mesh_dispatches"] == 0
-    assert out["mesh_dispatch_share"] == mesh["mesh_dispatch_share"] > 0
-    assert mesh["shards_ok"] is True and mesh["splits_sampled"] >= 1
-    for sizes in mesh["split_shard_lanes"]:
-        assert len(sizes) == 4 and all(s % 32 == 0 for s in [s for s in sizes if s][:-1])
-    assert sum(mesh["occupancy_lanes"].values()) > 0
-    assert out["devices_with_lanes"] == sum(1 for v in mesh["occupancy_lanes"].values() if v)
-    assert single["fallback_lanes"] == mesh["fallback_lanes"] == 0
-    assert single["daemon_exit"] == mesh["daemon_exit"] == 0
 
 
 _REFERENCE_KEYS = {"ed25519": j_ed25519.PubKeyEd25519, "sr25519": j_sr25519.PubKeySr25519,

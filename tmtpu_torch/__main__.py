@@ -11,13 +11,10 @@ cache, each key with its ``TMTPU_<SECTION>_<FIELD>`` override): the
 address is ``--addr``, else ``[sidecar] addr``, else
 ``<--home>/data/sidecar.sock``; the lane caps, frame cap, request deadline
 (10 s by default), ``warm_on_start``, ``health_laddr`` and the cache's
-knobs come from the file, and a flag, when given, wins over it.
-``[sidecar] mesh_devices`` / ``shard_min_lanes`` are not taken from the
-file (``tmtpu init`` writes ``mesh_devices = 0``, which the reference reads
-as every chip): only ``--mesh-devices`` and ``--shard-min-lanes`` set
-them. A dispatch of at least that many lanes of one curve then splits
-across the cards (``gpu/mesh_dispatch.py``); the port's default
-``--mesh-devices`` is 1, the mesh off; 0 opts in to every visible card.
+knobs come from the file, and a flag, when given, wins over it. The
+daemon serves one card: ``[sidecar] mesh_devices`` and ``shard_min_lanes``
+are read but not applied (``config.py``). On a host with several cards,
+run one daemon a card.
 
 By default it warms up first (builds the kernels and the C host prep,
 verifies one self-signed batch of each curve), then prints one ready line
@@ -74,9 +71,7 @@ def cmd_sidecar(args) -> int:
                            max_frame_bytes=sc.max_frame_bytes,
                            request_deadline_s=deadline_s,
                            health_laddr=_pick(args.health_laddr, sc.health_laddr),
-                           failure_threshold=cr.breaker_failure_threshold,
-                           mesh_devices=args.mesh_devices,
-                           shard_min_lanes=args.shard_min_lanes)
+                           failure_threshold=cr.breaker_failure_threshold)
     if args.gather_ms is not None:
         server.coalescer.scheduler.fixed_wait_s = args.gather_ms / 1000.0
     warm_s = server.warm() if sc.warm_on_start and not args.no_warm else 0.0
@@ -131,13 +126,6 @@ def main(argv=None) -> int:
                     help="a fixed gather window in place of the adaptive one")
     sp.add_argument("--no-sigcache", action="store_true",
                     help="switch the signature cache off (no hits, no dedup)")
-    sp.add_argument("--mesh-devices", type=int, default=None,
-                    help="cards a dispatch may split across (default 1: the mesh is off; "
-                         "0: every visible card; on the CPU, that many CPU shards); "
-                         "flag only, [sidecar] mesh_devices is not read")
-    sp.add_argument("--shard-min-lanes", type=int, default=None,
-                    help="the fewest lanes of one curve that split across the mesh "
-                         "(flag only)")
     sp.set_defaults(fn=cmd_sidecar)
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -13,10 +13,10 @@ what the reference's ``validate`` rejects in these sections, and on a key
 of ``[sidecar]`` it does not know, as the reference does; the other
 sections belong to the node and are not read.
 
-``mesh_devices`` and ``shard_min_lanes`` are read and validated but not
-applied: ``tmtpu init`` writes ``mesh_devices = 0`` (every chip, in the
-reference) into every file, and the port keeps its mesh off unless the
-daemon's ``--mesh-devices`` flag opts in (``gpu/mesh_dispatch.py``).
+``mesh_devices`` and ``shard_min_lanes`` are read and validated but never
+applied: ``tmtpu init`` writes them into every file, and the reader
+rejects unknown keys, but the port's daemon serves one card and has no
+split across cards.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ class SidecarSettings:
     max_frame_bytes: int = 8 * 1024 * 1024
     warm_on_start: bool = True
     health_laddr: str = ""
-    mesh_devices: int = 0      # read and validated, never applied (flag-only)
+    mesh_devices: int = 0      # read and validated, never applied
     shard_min_lanes: int = 2048  # likewise
 
 

@@ -15,13 +15,10 @@ folded into it, and successes are inserted on the way out. The lanes left
 split by curve, as the reference's ``_split`` does, with one device
 dispatch per curve present: ed25519 to ``sharding.batch_verify_tally`` (or
 ``verify.batch_verify``), sr25519 to ``sr_verify.batch_verify_sr``,
-secp256k1 to ``k1_verify.batch_verify_k1``; or, where
-``mesh_dispatch.route`` says so (at least ``shard_min_lanes`` lanes left
-after the resolve and two or more devices), split across the mesh by
-``mesh_dispatch.batch_verify_tally_mesh`` / ``batch_verify_mesh``, the
-reference's ``_mesh_first``. There is no breaker, no fallback from the mesh
-to one device and no serial CPU fallback; groups below the reference's
-serial threshold go to the device too, which gives the same mask.
+secp256k1 to ``k1_verify.batch_verify_k1``, all on the verifier's one
+device. There is no breaker, no split across cards and no serial CPU
+fallback; groups below the reference's serial threshold go to the device
+too, which gives the same mask.
 
 Observability: the resolve counts dedup lanes
 (``crypto_sigcache_dedup_lanes_total``; the cache counts its own hits,
@@ -31,10 +28,10 @@ device, once resolved, sets ``crypto_tpu_backend_up``. Spans the reference
 does not record: ``sigcache.resolve`` (the cache's C call and the
 bookkeeping that picks the lanes to dispatch; ``lanes``, ``hits``),
 ``sigcache.insert`` (the successes added; ``lanes``),
-``crypto.pack_words`` (``verify_tally``'s bit pack on the device and its
-readback; ``lanes``) and ``crypto.host_tally`` (the power of a curve's
-valid lanes summed on the host, for a curve the device does not tally;
-``curve``, ``lanes``).
+``crypto.pack_words`` (the bit pack of ``bit_words`` on the device and
+its readback, at the first read; ``lanes``) and ``crypto.host_tally`` (the
+power of a curve's valid lanes summed on the host, for a curve the device
+does not tally; ``curve``, ``lanes``).
 """
 
 from __future__ import annotations
@@ -182,10 +179,9 @@ class BatchVerifier:
 class TorchBatchVerifier(BatchVerifier):
     """Lanes verified on ``device`` (None: the CUDA card; raises when there
     is none), one dispatch per curve present. After ``verify_tally``,
-    ``bit_words`` holds the vote bitarray of every item in ``add`` order,
-    hits included, packed on the device (uint32 words, LSB-first), and
-    ``mesh_dispatches`` the curves of the last flush that went across the
-    mesh."""
+    ``bit_words`` is the vote bitarray of every item in ``add`` order,
+    hits included (uint32 words, LSB-first), packed on the device when it
+    is first read."""
 
     def __init__(self, device=None):
         super().__init__()
@@ -195,15 +191,22 @@ class TorchBatchVerifier(BatchVerifier):
             metrics.crypto_tpu_backend_up.set(0)
             raise
         metrics.crypto_tpu_backend_up.set(1)
-        self.bit_words: Optional[np.ndarray] = None
-        self.mesh_dispatches = 0
+        self._tally_mask: Optional[List[bool]] = None
+        self._bit_words: Optional[np.ndarray] = None
 
-    def _resolve(self, tally: bool) -> Tuple[bool, List[bool], int]:
-        self.mesh_dispatches = 0
-        return super()._resolve(tally)
+    @property
+    def bit_words(self) -> Optional[np.ndarray]:
+        """The last ``verify_tally``'s mask packed on the device (None
+        before one), packed on the first read and kept."""
+        if self._bit_words is None and self._tally_mask is not None:
+            from tmtpu_torch.gpu import sharding
+
+            with trace.span("crypto.pack_words", lanes=len(self._tally_mask)):
+                self._bit_words = sharding.pack_words(self._tally_mask, self.device)
+        return self._bit_words
 
     def _verify_pending(self, lanes, tally) -> Tuple[List[bool], int]:
-        from tmtpu_torch.gpu import k1_verify, mesh_dispatch, sharding, sr_verify
+        from tmtpu_torch.gpu import k1_verify, sharding, sr_verify
         from tmtpu_torch.gpu import verify as tv
 
         kinds = set(lanes.types)
@@ -220,23 +223,15 @@ class TorchBatchVerifier(BatchVerifier):
             else:
                 idx = [i for i, t in enumerate(lanes.types) if t == kind]
                 sub = lanes.take(idx)
-            meshed = mesh_dispatch.route(kind, len(sub), self.device)
-            self.mesh_dispatches += meshed
             if kind == ED25519 and tally:
-                tally_fn = (mesh_dispatch.batch_verify_tally_mesh if meshed
-                            else sharding.batch_verify_tally)
-                m, ed_sum = tally_fn(sub.pks, sub.msgs, sub.sigs, sub.powers,
-                                     device=self.device)
+                m, ed_sum = sharding.batch_verify_tally(sub.pks, sub.msgs, sub.sigs,
+                                                        sub.powers, device=self.device)
                 tallied += ed_sum
             else:
-                if meshed:
-                    m = mesh_dispatch.batch_verify_mesh(kind, sub.pks, sub.msgs, sub.sigs,
-                                                        device=self.device)
-                else:
-                    verify_fn = {ED25519: tv.batch_verify,
-                                 SR25519: sr_verify.batch_verify_sr,
-                                 SECP256K1: k1_verify.batch_verify_k1}[kind]
-                    m = verify_fn(sub.pks, sub.msgs, sub.sigs, device=self.device)
+                verify_fn = {ED25519: tv.batch_verify,
+                             SR25519: sr_verify.batch_verify_sr,
+                             SECP256K1: k1_verify.batch_verify_k1}[kind]
+                m = verify_fn(sub.pks, sub.msgs, sub.sigs, device=self.device)
                 if tally:
                     with trace.span("crypto.host_tally", curve=kind, lanes=len(sub)):
                         tallied += sum(itertools.compress(sub.powers, m.tolist()))
@@ -244,11 +239,8 @@ class TorchBatchVerifier(BatchVerifier):
         return mask.tolist(), tallied
 
     def verify_tally(self) -> Tuple[bool, List[bool], int]:
-        from tmtpu_torch.gpu import sharding
-
         all_ok, mask, tallied = super().verify_tally()
-        with trace.span("crypto.pack_words", lanes=len(mask)):
-            self.bit_words = sharding.pack_words(mask, self.device)
+        self._tally_mask, self._bit_words = mask, None
         return all_ok, mask, tallied
 
 
@@ -257,16 +249,16 @@ def new_batch_verifier(device=None) -> TorchBatchVerifier:
 
 
 def verify_lanes(curve: str, pks, msgs, sigs, powers, tally: bool,
-                 device=None) -> Tuple[List[bool], int, Dict, int]:
+                 device=None) -> Tuple[List[bool], Dict]:
     """One curve's raw lanes through a fresh ``TorchBatchVerifier``: the
-    sidecar daemon's engine. Returns (mask, tallied power of the valid
-    lanes, 0 when ``tally`` is false; the flush's ``cache_stats``; 1 when
-    the flush went across the mesh, else 0)."""
+    sidecar daemon's engine. Returns (mask, the flush's ``cache_stats``).
+    With ``tally`` the ed25519 lanes take the device's verify + tally step,
+    as the reference's engine does; the flush's sum is not returned, since
+    the daemon replies with each request's tally of its own slice."""
     bv = TorchBatchVerifier(device)
     bv.add_lanes(curve, pks, msgs, sigs, powers)
     if tally:
-        _all_ok, mask, tallied = bv.verify_tally()
+        _all_ok, mask, _tallied = bv.verify_tally()
     else:
         _all_ok, mask = bv.verify()
-        tallied = 0
-    return mask, tallied, bv.cache_stats, bv.mesh_dispatches
+    return mask, bv.cache_stats

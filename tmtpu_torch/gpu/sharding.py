@@ -8,14 +8,19 @@ limbs of 32 bits (``power_limbs``: unsigned limbs under a signed top one,
 as many as the largest power needs, at least two), each limb row is summed
 in int64 (exact below 2^31 lanes) and the host combines the sums into a
 Python int (``readback``), so a tally past 2^63, or a single power past
-it, comes out as the reference's. Lanes the host rejected get a false mask bit, so they reach neither the
-tally nor the bitarray. The bitarray is packed once per batch, over every
-curve's lanes, by ``crypto.batch`` with ``pack_bitarray``. The kernel takes any width, so the device sees
-exactly the batch's lanes: there are no pad lanes.
+it, comes out as the reference's. Lanes the host rejected get a false
+mask bit, so they reach neither the tally nor the bitarray. The bitarray
+is packed once per batch, over every curve's lanes, when ``crypto.batch``'s
+``bit_words`` is first read (``pack_words``). The kernel takes any width,
+so the device sees exactly the batch's lanes: there are no pad lanes.
 
 The sharded half (``make_mesh``, ``sharded_verify_tally``,
 ``sharded_verify_sr``, ``sharded_verify_k1``) is the counterpart of the
-reference's pjit / shard_map steps over a ``("sig",)`` mesh. One process
+reference's pjit / shard_map steps over a ``("sig",)`` mesh. It is not on
+the verify path, which uses one device (``crypto/batch.py``, the sidecar
+daemon): ``entry.dryrun_multichip`` certifies it and ``bench_torch.py
+--flood`` measures it. A caller runs the host prep
+(``verify.prepare_batch_packed``) and then the step it needs. One process
 drives every shard, as the reference's one controller drives every chip.
 A mesh is a tuple of devices, which may repeat one card; lanes go to
 contiguous shards of ``ceil(B / 32n) * 32`` lanes (``shard_bounds``: whole

@@ -11,16 +11,17 @@ name as the reference's one registry renders them.
 The families are the reference's, byte for byte in name, HELP, TYPE,
 labels and buckets. Labels: ``curve`` = ed25519 | sr25519 | secp256k1;
 ``backend`` = the device a flush ran on, ``gpu`` or ``cpu`` (the daemon's
-own name for it); ``impl`` = ``cuda`` (a hand-written kernel), ``torch``
-(the plain version, on the CPU) or ``mesh`` (the lane split). The port
-pads no lane, so every dispatch passes ``padded=0`` and ``crypto_pad_ratio``
-and the compile-cache families carry no series.
+own name for it); ``impl`` = ``cuda`` (a hand-written kernel) or ``torch``
+(the plain version, on the CPU). The port pads no lane, so every dispatch
+passes ``padded=0`` and ``crypto_pad_ratio`` and the compile-cache
+families carry no series.
 
 Not registered, since the port has nothing that could feed them: the
 breaker (``crypto_breaker_*``), every fallback (``crypto_cpu_fallback_total``,
-``crypto_mesh_fallback_total``), the per-batch deadline
-(``crypto_batch_deadline_exceeded_total``) and the device probe with its
-timeout (``crypto_device_probe_*``), and every node-side family.
+``crypto_mesh_fallback_total``), the split across cards (the other
+``crypto_mesh_*``: the port's verifier uses one device), the per-batch
+deadline (``crypto_batch_deadline_exceeded_total``) and the device probe
+with its timeout (``crypto_device_probe_*``), and every node-side family.
 """
 
 from __future__ import annotations
@@ -216,7 +217,7 @@ trace_context_invalid = DEFAULT.counter(
 # --- the crypto batch-verify pipeline families -------------------------------
 #
 # Observed at every device dispatch: gpu/sharding.py, verify.py,
-# sr_verify.py, k1_verify.py and mesh_dispatch.py.
+# sr_verify.py and k1_verify.py.
 
 LANE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048,
                 4096, 8192, 16384, 40960)
@@ -275,33 +276,6 @@ crypto_flush_target_lanes = DEFAULT.gauge(
 crypto_tpu_backend_up = DEFAULT.gauge(
     "crypto", "tpu_backend_up",
     "1 when a usable jax device backend answered the probe, else 0")
-
-# --- the mesh-dispatch families (gpu/mesh_dispatch.py) -----------------------
-
-crypto_mesh_devices = DEFAULT.gauge(
-    "crypto", "mesh_devices",
-    "Devices in the cached verify mesh (0 until the first sharded "
-    "dispatch builds it)")
-crypto_mesh_dispatches_total = DEFAULT.counter(
-    "crypto", "mesh_dispatches_total",
-    "Batch-verify flushes dispatched across the device mesh",
-    labels=("curve",))
-crypto_mesh_shard_lanes = DEFAULT.histogram(
-    "crypto", "mesh_shard_lanes",
-    "Padded lanes per device shard in a mesh dispatch",
-    labels=("curve",), buckets=LANE_BUCKETS)
-crypto_mesh_pad_ratio = DEFAULT.histogram(
-    "crypto", "mesh_pad_ratio",
-    "Padded-over-actual lane ratio per mesh dispatch (bucket plus "
-    "32 x n_devices quantum rounding)",
-    labels=("curve",),
-    buckets=(1.0, 1.05, 1.1, 1.25, 1.5, 2.0, 4.0, 8.0))
-crypto_mesh_psum_seconds = DEFAULT.histogram(
-    "crypto", "mesh_psum_seconds",
-    "Host readback time of the psum-reduced vote-power limb sums "
-    "after the packed mask is ready",
-    buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
-             0.025, 0.05, 0.1, 0.25, 1))
 
 # (curve, impl, padded lanes) shapes already dispatched in this process,
 # the reference's stand-in for its jit cache; the port pads nothing, so

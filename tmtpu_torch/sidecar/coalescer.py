@@ -7,7 +7,7 @@ dispatcher thread, the only one that launches kernels, gathers them under
 its own ``AdaptiveFlushScheduler`` (fed by request arrivals and dispatch
 round trips) and hands one joint set of columns per curve to the verify
 engine. Each request gets back its slice of the joint mask, its own
-tally recomputed from that slice, and the dispatch's metadata (id, lanes,
+tally summed from that slice, and the dispatch's metadata (id, lanes,
 distinct clients, traced requests).
 
 - Whole requests only: a request's lanes never split across dispatches,
@@ -22,8 +22,6 @@ distinct clients, traced requests).
   length, answers every request of the dispatch with ``failure="engine"``
   and no mask.
 
-- Mesh accounting: the engine reports whether it split a dispatch across
-  the mesh, and those dispatches are counted in ``mesh_dispatches``.
 - Engine failures in a row (``engine_failures()``, with the last one's
   text) feed the daemon's health signal; a dispatch that answers resets
   the count.
@@ -57,9 +55,9 @@ from tmtpu_torch.libs import metrics as lib_metrics
 from tmtpu_torch.libs import trace
 from tmtpu_torch.sidecar.metrics import SidecarMetrics
 
-# the verify engine: (curve, pks, msgs, sigs, powers, tally) -> (mask,
-# tallied, the mesh dispatches it made: 0 or 1)
-VerifyFn = Callable[[str, list, list, list, list, bool], Tuple[List[bool], int, int]]
+# the verify engine: (curve, pks, msgs, sigs, powers, tally) -> the joint
+# mask; each request's tally is summed here from its own slice
+VerifyFn = Callable[[str, list, list, list, list, bool], List[bool]]
 
 
 class Overloaded(Exception):
@@ -209,7 +207,6 @@ class Coalescer:
         self._queued_lanes = 0
         self._inflight = 0            # batches cut but not yet answered
         self._dispatch_seq = 0
-        self._mesh_dispatches = 0
         self._dispatched_requests = 0
         self._dispatches_by_curve: Dict[str, int] = {}
         self._dispatched_lanes = 0
@@ -303,7 +300,6 @@ class Coalescer:
                     "queued_by_curve": per_curve,
                     "inflight_batches": self._inflight,
                     "dispatches": self._dispatch_seq,
-                    "mesh_dispatches": self._mesh_dispatches,
                     "dispatches_by_curve": dict(self._dispatches_by_curve),
                     "dispatched_requests": self._dispatched_requests,
                     "dispatched_lanes": self._dispatched_lanes,
@@ -431,7 +427,7 @@ class Coalescer:
         tally = any(req.tally for req in live)
         t0 = time.perf_counter()
         try:
-            mask, _tallied, meshed = self._verify_fn(curve, pks, msgs, sigs, powers, tally)
+            mask = self._verify_fn(curve, pks, msgs, sigs, powers, tally)
         except Exception as exc:  # noqa: BLE001 - an engine failure must not
             # wedge clients: they get an error verdict, never a mask
             self._engine_failed(live, f"verify engine failed: {exc}")
@@ -442,15 +438,6 @@ class Coalescer:
         m.dispatches.inc(curve=curve)
         m.dispatch_lanes.observe(len(sigs), curve=curve)
         m.dispatch_clients.observe(clients)
-        if meshed:
-            from tmtpu_torch.gpu import mesh_dispatch
-
-            snap = mesh_dispatch.snapshot()
-            m.mesh_dispatches.inc(meshed, curve=curve)
-            for dev, lanes in snap["occupancy_lanes"].items():
-                m.mesh_occupancy.set(lanes, device=dev)
-        with self._lock:
-            self._mesh_dispatches += meshed
         # one mark per distinct trace the dispatch served: a fleet join sees
         # which heights shared this device flush
         traced = [req.trace_ctx for req in live if req.trace_ctx is not None]

@@ -2,7 +2,8 @@
 (``tmtpu/libs/metrics.py``) under the same names, labels, help and
 buckets, fed by the server (connections, requests, protocol errors) and
 the coalescer (queue lanes, overloads, dispatches, dispatch lanes and
-clients, mesh dispatches and occupancy).
+clients). The reference's two mesh families are not registered: the
+daemon serves one card.
 
 They live in a registry of the daemon's own, so each daemon starts at
 zero; ``/metrics`` renders it together with the process-wide registry of
@@ -46,14 +47,6 @@ class SidecarMetrics:
             "sidecar", "server_protocol_errors_total",
             "Malformed frames / bad sequencing / version mismatches rejected by the "
             "sidecar daemon", labels=("kind",))
-        self.mesh_dispatches = reg.counter(
-            "sidecar", "server_mesh_dispatches_total",
-            "Joint coalesced dispatches that rode the multi-chip mesh path",
-            labels=("curve",))
-        self.mesh_occupancy = reg.gauge(
-            "sidecar", "server_mesh_occupancy_lanes",
-            "Cumulative sharded lanes dispatched to each mesh device by this daemon",
-            labels=("device",))
 
     def render(self) -> str:
         """The daemon's families alone."""

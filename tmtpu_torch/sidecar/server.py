@@ -6,9 +6,9 @@ The engine is the port's batch verifier on raw lanes
 through the verify-once resolve against the daemon-wide signature cache
 (``sigcache.DEFAULT``, so a triple verified for node A is a hit for node
 B, and identical lanes of two clients in one dispatch share one lane),
-then one kernel launch per curve. Only the coalescer's dispatcher thread
-runs the engine; ``warm()`` runs before ``start()``, so no request waits
-for the kernels' build.
+then one kernel launch per curve on the daemon's one device. Only the
+coalescer's dispatcher thread runs the engine; ``warm()`` runs before
+``start()``, so no request waits for the kernels' build.
 
 There is no CPU fallback, no breaker and no serial re-verify: an engine
 failure answers every request of its dispatch with the reference's
@@ -64,7 +64,6 @@ from typing import Dict, Optional
 from tmtpu_torch import device as device_mod
 from tmtpu_torch.crypto import batch as crypto_batch
 from tmtpu_torch.crypto import sigcache
-from tmtpu_torch.gpu import mesh_dispatch
 from tmtpu_torch.libs import metrics as lib_metrics
 from tmtpu_torch.libs import trace
 from tmtpu_torch.sidecar import protocol as proto
@@ -117,9 +116,7 @@ class SidecarServer:
                  request_deadline_s: float = 30.0,
                  health_laddr: str = "",
                  failure_threshold: int = 3,
-                 server_id: str = "",
-                 mesh_devices: Optional[int] = None,
-                 shard_min_lanes: Optional[int] = None):
+                 server_id: str = ""):
         self.addr = addr
         self._kind, self._target = proto.parse_addr(addr)
         self.device = device_mod.resolve(device)
@@ -131,14 +128,10 @@ class SidecarServer:
         self._health_httpd = None
         self._health_thread: Optional[threading.Thread] = None
         self.server_id = server_id or f"sidecar-{os.getpid()}"
-        # the daemon owns every card on the host: its mesh knobs
-        # (``[sidecar] mesh_devices`` / ``shard_min_lanes``) apply at start
-        self._mesh_devices = mesh_devices
-        self._shard_min_lanes = shard_min_lanes
         self._max_queue_lanes = max_queue_lanes
         self.metrics = SidecarMetrics()
         self.coalescer = Coalescer(
-            self._engine_verify,
+            self._verify_mask,
             max_queue_lanes=max_queue_lanes,
             max_lanes_per_dispatch=max_lanes_per_dispatch,
             metrics=self.metrics)
@@ -155,13 +148,18 @@ class SidecarServer:
     # --- verify engine ---
 
     def _engine_verify(self, curve, pks, msgs, sigs, powers, tally):
-        """Coalescer dispatch target: one curve's joint columns through one
-        verify-once flush on the daemon's device. Returns (mask, tallied,
-        1 when the flush went across the mesh, else 0)."""
-        mask, tallied, stats, meshed = crypto_batch.verify_lanes(
+        """One curve's joint columns through one verify-once flush on the
+        daemon's device. Returns ``(mask, 0, 0)``: only the mask is read.
+        The zeros keep the places of the flush's tally and mesh count, since
+        the planted-fault double ``benchmark/tests/fault_host.py`` wraps
+        this method and unpacks three values; they go when it takes a mask."""
+        mask, self._last_cache_stats = crypto_batch.verify_lanes(
             curve, pks, msgs, sigs, powers, tally, device=self.device)
-        self._last_cache_stats = stats
-        return mask, tallied, meshed
+        return mask, 0, 0
+
+    def _verify_mask(self, curve, pks, msgs, sigs, powers, tally):
+        """The coalescer's ``VerifyFn``: the engine's mask alone."""
+        return self._engine_verify(curve, pks, msgs, sigs, powers, tally)[0]
 
     def backend_name(self) -> str:
         return "gpu" if self.device.type == "cuda" else "cpu"
@@ -180,11 +178,10 @@ class SidecarServer:
         native.build()
         for curve in crypto_batch.PUB_KEY_SIZES:
             pks, msgs, sigs = _self_signed(curve, WARM_LANES)
-            mask, tallied, _ = self._engine_verify(curve, pks, msgs, sigs,
-                                                   [1] * WARM_LANES, True)
-            if mask != [True] * WARM_LANES or tallied != WARM_LANES:
+            mask = self._verify_mask(curve, pks, msgs, sigs, [1] * WARM_LANES, True)
+            if mask != [True] * WARM_LANES:
                 raise RuntimeError(f"sidecar warm-up: {curve} self-signed lanes gave "
-                                   f"mask {mask}, tally {tallied}")
+                                   f"mask {mask}")
         self._warmed = True
         return time.perf_counter() - t0
 
@@ -215,8 +212,6 @@ class SidecarServer:
         self._listener = sock
         self._running = True
         self._started_at = time.monotonic()
-        mesh_dispatch.set_overrides(mesh_devices=self._mesh_devices,
-                                    shard_min_lanes=self._shard_min_lanes)
         self.coalescer.start()
         if self.health_laddr:
             self._start_health_http()
@@ -297,7 +292,6 @@ class SidecarServer:
                        "max_frame_bytes": self._max_frame_bytes,
                        "request_deadline_s": self._default_deadline_s},
             "coalescer": self.coalescer.snapshot(),
-            "mesh": mesh_dispatch.snapshot(),
             "sigcache": sigcache.stats(),
             "engine": {"last_cache_stats": self._last_cache_stats,
                        "launches": launch_counts(),

@@ -37,8 +37,8 @@ def smi_line() -> str:
 class Daemon:
     """``python -m tmtpu_torch sidecar`` on a unix socket in a temporary
     home (on local TCP where that path is too long for a socket), until
-    ``stop()``. ``extra_args`` are more daemon flags (``--mesh-devices``,
-    ``--shard-min-lanes``, ``--no-sigcache``, ...)."""
+    ``stop()``. ``extra_args`` are more daemon flags (``--no-sigcache``,
+    ``--gather-ms``, ...)."""
 
     def __init__(self, device, ready_timeout_s=READY_TIMEOUT_S, extra_args=()):
         self.home = tempfile.mkdtemp(prefix="tmtpu-gpu-")
