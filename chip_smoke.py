@@ -100,7 +100,7 @@ from tmtpu_torch import device as device_mod
 from tmtpu_torch import entry as entry_mod
 from tmtpu_torch import native
 from tmtpu_torch.crypto import batch as crypto_batch
-from tmtpu_torch.crypto import sigcache
+from tmtpu_torch.crypto import lanes, sigcache
 from tmtpu_torch.crypto.ed25519 import PrivKeyEd25519, PubKeyEd25519
 from tmtpu_torch.crypto.secp256k1 import PubKeySecp256k1
 from tmtpu_torch.crypto.sr25519 import PrivKeySr25519, PubKeySr25519
@@ -1495,15 +1495,14 @@ def main() -> int:
           + ", ".join(f"{name} {ms:.3f}" for name, ms in phases.items())
           + f"; sum {sum(phases.values()):.3f}; the keys in Python (sigcache.cache_key) "
           f"{py_keys_ms:.3f} median of 5 [{card}]")
-    _, pk_arr, r_arr, s_arr = tv.host_lanes(pks, sigs)
-    types = [k.type_value() for k in keys]
-    c_ms = {nt: (time_host(lambda: native.prep_ed25519(pk_arr, r_arr, s_arr, msgs,
-                                                       nthreads=nt), 5),
-                 time_host(lambda: native.cache_keys(types, pks, msgs, sigs, nthreads=nt), 5))
+    cols = [lanes.ByteColumn.join(c) for c in (pks, msgs, sigs)]
+    c_ms = {nt: (time_host(lambda: native.prep_ed25519(*cols, nthreads=nt), 5),
+                 time_host(lambda: native.cache_keys(crypto_batch.ED25519, *cols,
+                                                     nthreads=nt), 5))
             for nt in (1, native._threads(None))}
     sha_ni = native.sha256_ni()
     native.sha256_ni(False)
-    portable_ms = {nt: time_host(lambda: native.cache_keys(types, pks, msgs, sigs,
+    portable_ms = {nt: time_host(lambda: native.cache_keys(crypto_batch.ED25519, *cols,
                                                            nthreads=nt), 5)
                    for nt in c_ms}
     native.sha256_ni(sha_ni)

@@ -177,7 +177,8 @@ def test_one_dispatch_holds_both_requests_and_the_flush(daemon_run):
         "sigcache.insert"))
     assert all(under_dispatch(sp) for sp in engine)
     resolve = next(sp for sp in engine if sp.name == "sigcache.resolve")
-    assert resolve.attrs == {"lanes": 5, "hits": 0}
+    # two requests' columns joined into one buffer by the coalescer
+    assert resolve.attrs == {"lanes": 5, "hits": 0, "columns": "view"}
     # the one invalid lane is not inserted
     assert next(sp for sp in engine if sp.name == "sigcache.insert").attrs == {"lanes": 4}
     for sp in engine:
@@ -208,7 +209,7 @@ def test_repeated_request_is_resolved_from_the_cache(daemon_run):
     names = [sp.name for sp in spans]
     assert "crypto.batch_verify_tally" not in names and "sigcache.insert" not in names
     (resolve,) = [sp for sp in spans if sp.name == "sigcache.resolve"]
-    assert resolve.attrs == {"lanes": 2, "hits": 2}
+    assert resolve.attrs == {"lanes": 2, "hits": 2, "columns": "view"}
     assert sorted(sp.name for sp in _of_request(spans, "beta")) == sorted(PATH)
     _inside(spans, sent, replied, daemon_run["drained"]["repeat"],
             late_ends=("sidecar.reply", "coalescer.dispatch"))

@@ -26,6 +26,7 @@ from tmtpu.tpu import sr_verify as jsv
 from tmtpu.tpu import verify as jtv
 from tmtpu_torch import native
 from tmtpu_torch.crypto import ed25519_ref as ref
+from tmtpu_torch.crypto import lanes
 from tmtpu_torch.crypto.sr25519 import challenge_k, gen_priv_key_from_secret
 from tmtpu_torch.gpu import k1_verify as kv
 from tmtpu_torch.gpu import sr_verify as sv
@@ -69,18 +70,37 @@ def _random_rows(n, seed):
     return pk, r, s, [rng.bytes(i) for i in range(n)]
 
 
+def _y_ok(pk):
+    """A.y < p on the sign-masked encoding, a lane a row."""
+    y = [int.from_bytes(row.tobytes(), "little") & ((1 << 255) - 1) for row in pk]
+    return np.array([v < 2**255 - 19 for v in y], dtype=bool)
+
+
 @pytest.mark.parametrize("nthreads", THREADS)
 @pytest.mark.parametrize("n", [0, 1, 301])
 def test_prep_ed25519_equals_reference_and_hashlib(n, nthreads):
+    """The plane's h rows equal the reference's C entry and hashlib, its s
+    rows the signatures' s where s < L and zero elsewhere, and the host
+    verdicts the reference's s < L with A.y < p."""
     pk, r, s, msgs = _random_rows(n, 11 + n)
-    h, s_ok = native.prep_ed25519(pk, r, s, msgs, nthreads=nthreads)
+    pk[:3, 1:31], pk[:3, 31] = 0xFF, 0x7F  # A.y = p - 19 + pk[0]: p and past
+    pk[:3, 0] = [0xEC, 0xED, 0xFF][:n]
+    pks = [row.tobytes() for row in pk]
+    sigs = [a.tobytes() + b.tobytes() for a, b in zip(r, s)]
+    packed, ok = native.prep_ed25519(lanes.ByteColumn.join(pks), msgs, sigs,
+                                     nthreads=nthreads)
     want_h, want_ok = jnative.prep_ed25519(pk, r, s, msgs, nthreads=nthreads)
+    h = packed[96:128].T
     np.testing.assert_array_equal(h, want_h)
-    np.testing.assert_array_equal(s_ok, want_ok)
+    np.testing.assert_array_equal(ok, want_ok & _y_ok(pk))
+    np.testing.assert_array_equal(packed[0:32].T, pk)
+    np.testing.assert_array_equal(packed[32:64].T, r)
+    np.testing.assert_array_equal(packed[64:96].T, np.where(want_ok[:, None], s, 0))
+    assert n < 3 or ok[:3].tolist() == [want_ok[0], False, False]
     for i in range(n):
         d = hashlib.sha512(r[i].tobytes() + pk[i].tobytes() + msgs[i]).digest()
         assert h[i].tobytes() == (int.from_bytes(d, "little") % ref.L).to_bytes(32, "little")
-        assert s_ok[i] == (int.from_bytes(s[i].tobytes(), "little") < ref.L)
+        assert want_ok[i] == (int.from_bytes(s[i].tobytes(), "little") < ref.L)
 
 
 @pytest.mark.parametrize("nthreads", THREADS)
@@ -105,13 +125,14 @@ def test_ed25519_prep_on_corpora(name):
         want_packed, want_ok = other(pks, msgs, sigs)
         np.testing.assert_array_equal(packed, want_packed)
         np.testing.assert_array_equal(ok, want_ok)
-    _, pk, r, s = tv.host_lanes(pks, sigs)
+    len_ok, pk, r, s = tv.host_lanes(pks, sigs)
     for nthreads in THREADS:
-        h, s_ok = native.prep_ed25519(pk, r, s, msgs, nthreads=nthreads)
+        got_packed, got_ok = native.prep_ed25519(pks, msgs, sigs, nthreads=nthreads)
         want_h, want_ok = jnative.prep_ed25519(pk, r, s, msgs, nthreads=nthreads)
-        np.testing.assert_array_equal(h, want_h)
-        np.testing.assert_array_equal(s_ok, want_ok)
-        np.testing.assert_array_equal(h.T, packed[96:128])
+        np.testing.assert_array_equal(got_packed, packed)
+        np.testing.assert_array_equal(got_ok, ok)
+        np.testing.assert_array_equal(want_h.T, packed[96:128])
+        np.testing.assert_array_equal(ok, len_ok & want_ok & _y_ok(pk))
 
 
 @pytest.mark.parametrize("name", sorted(SR_CORPORA))
@@ -145,11 +166,18 @@ def test_adversarial_corpora_reach_the_rejections():
 
 
 def test_rows_are_checked_before_the_call():
-    with pytest.raises(ValueError, match=r"\[2, 32\]"):
-        native.prep_ed25519(np.zeros((2, 31), np.uint8), np.zeros((2, 32), np.uint8),
-                            np.zeros((2, 32), np.uint8), [b"", b""])
+    """Columns of different lengths raise before any C call; a key or
+    signature of the wrong length is a lane the host refuses, not an
+    error."""
+    with pytest.raises(ValueError, match="expected 2 byte strings, got 1"):
+        native.prep_ed25519([bytes(32)], [b"", b""], [bytes(64)] * 2)
     with pytest.raises(ValueError, match="expected 2 byte strings"):
         native.cache_keys(["ed25519", "ed25519"], [b"", b""], [b""], [b"", b""])
+    with pytest.raises(ValueError, match="expected 2 curve names"):
+        native.cache_keys(["ed25519"], [b"", b""], [b"", b""], [b"", b""])
+    packed, ok = native.prep_ed25519([bytes(31), bytes(32)], [b"", b""],
+                                     [bytes(64), bytes(63)])
+    assert ok.tolist() == [False, False] and not packed[:96].any()
 
 
 def test_no_compiler_raises(monkeypatch, tmp_path):
@@ -434,10 +462,18 @@ def test_k1_edge_lanes_reach_their_branches():
 
 
 def test_prep_k1_rows_are_checked():
-    with pytest.raises(ValueError, match=r"\[2, 33\]"):
-        native.prep_k1(np.zeros((2, 32), np.uint8), np.zeros((2, 64), np.uint8), [b"", b""])
-    with pytest.raises(ValueError, match=r"\[2, 64\]"):
-        native.prep_k1(np.zeros((2, 33), np.uint8), np.zeros((2, 63), np.uint8), [b"", b""])
+    """Columns of different lengths raise; a key or signature of the
+    wrong length is a refused lane with the dummy bytes and parity 0."""
+    with pytest.raises(ValueError, match="expected 2 byte strings, got 1"):
+        native.prep_k1([bytes(33)] * 2, [b""], [bytes(64)] * 2)
+    with pytest.raises(ValueError, match="expected 2 byte strings, got 3"):
+        native.prep_k1([bytes(33)] * 3, [b"", b""], [bytes(64)] * 2)
+    pks, msgs, sigs = corpus.k1_signed(2, 1)
+    packed, ok = native.prep_k1([pks[0][:32], b"\x03" + pks[1][1:] + b"\x00"], msgs,
+                                [sigs[0], sigs[1][:63]])
+    assert ok.tolist() == [False, False] and not packed[160:].any()
+    col = lambda i, row: int.from_bytes(packed[row:row + 32, i].tobytes(), "big")  # noqa: E731
+    assert [[col(i, row) for row in range(0, 160, 32)] for i in (0, 1)] == [[0, 1, 1, 1, 1]] * 2
 
 
 # ---------------------------------------------------------------------------

@@ -230,7 +230,9 @@ def test_cached_flush_span_roots():
                             ("ed25519.readback", root, None),
                             ("sigcache.insert", None, 64),
                             ("crypto.pack_words", None, 64)]
-    assert {sp.name: sp for sp in spans}["sigcache.resolve"].attrs == {"lanes": 64, "hits": 0}
+    # lists given to add_lanes are joined into columns at the flush
+    assert {sp.name: sp for sp in spans}["sigcache.resolve"].attrs == {
+        "lanes": 64, "hits": 0, "columns": "joined"}
 
 
 def test_mixed_flush_records_one_execute_a_curve(flushes):

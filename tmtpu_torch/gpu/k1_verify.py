@@ -250,19 +250,12 @@ def prepare_k1_batch_packed(pks, msgs, sigs):
 
     Lanes with wrong lengths, a prefix other than 2 or 3, x >= p, r or s
     outside [1, n - 1] or s > n/2 get well-formed dummy bytes (x = 0,
-    u1 = u2 = r = rpn = 1) and host_ok False. Everything past the lengths
-    is the port's C library (``native.prep_k1``); a lane of the wrong
-    length goes in as zero bytes, which its prefix check refuses."""
-    B = len(sigs)
-    len_ok = ((np.fromiter(map(len, pks), dtype=np.int64, count=B) == 33)
-              & (np.fromiter(map(len, sigs), dtype=np.int64, count=B) == 64))
-    if not len_ok.all():
-        pks = [p if ok else _ZERO33 for p, ok in zip(pks, len_ok)]
-        sigs = [s if ok else _ZERO64 for s, ok in zip(sigs, len_ok)]
-    pk_arr = np.frombuffer(b"".join(pks), dtype=np.uint8).reshape(B, 33)
-    sig_arr = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(B, 64)
-    packed, ok = native.prep_k1(pk_arr, sig_arr, msgs)
-    return packed, ok & len_ok
+    u1 = u2 = r = rpn = 1) and host_ok False. All of it, the lengths
+    included, is the port's C library (``native.prep_k1``), which reads
+    the columns (``crypto/lanes.py``, or lists of bytes) where they lie; a
+    lane of the wrong length goes in as zero bytes, which its prefix check
+    refuses."""
+    return native.prep_k1(pks, msgs, sigs)
 
 
 def prepare_k1_batch_packed_plain(pks, msgs, sigs):

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from tmtpu_torch import device as device_mod
+from tmtpu_torch.crypto import lanes
 from tmtpu_torch.gpu import k1_kernel, kernel, spans
 from tmtpu_torch.gpu import verify as tv
 from tmtpu_torch.libs import metrics, trace
@@ -70,13 +71,15 @@ _LIMB_MASK = (1 << LIMB_BITS) - 1
 
 
 def power_limbs(powers) -> np.ndarray:
-    """Voting powers (ints of any size and sign) -> [L, B] int64 limbs with
+    """Voting powers (ints of any size and sign, or an ``IntColumn``) ->
+    [L, B] int64 limbs with
     power = sum_k limb_k << 32k: limbs 0..L-2 unsigned 32-bit, the top one
     signed and under 2^31 in magnitude. L is 2 when every power fits int64,
     else the fewest that hold the largest."""
     n = len(powers)
     try:
-        p = np.fromiter(powers, dtype=np.int64, count=n)
+        p = (powers.values if isinstance(powers, lanes.IntColumn)
+             else np.fromiter(powers, dtype=np.int64, count=n))
         n_limbs = 2
     except OverflowError:
         p = np.array([int(v) for v in powers], dtype=object)

@@ -9,9 +9,10 @@ crypto/ed25519/ed25519.go:148-155; oracle ``ed25519_ref.verify``):
 
 Split of labour:
 - host: length checks, ``s < L``, canonical ``A.y``, SHA-512 and the
-  reduction mod L (in C, ``native.prep_ed25519``; ``hashlib`` in the plain
-  version), packed into one ``[128, B]`` uint8 plane (pk | r | s | h) so
-  the host-to-device hop is a single copy;
+  reduction mod L, written as one ``[128, B]`` uint8 plane (pk | r | s |
+  h) so the host-to-device hop is a single copy: in C in one pass over the
+  lane columns (``native.prep_ed25519``), in numpy and ``hashlib`` in the
+  plain version;
 - device: everything else, in the CUDA kernel (``kernel.py``) or, for a
   CPU tensor, in ``verify_core_compact`` below.
 """
@@ -27,6 +28,7 @@ import torch
 from tmtpu_torch import device as device_mod
 from tmtpu_torch import native
 from tmtpu_torch.crypto import ed25519_ref as ref
+from tmtpu_torch.crypto import lanes
 from tmtpu_torch.gpu import curve, fe, spans
 from tmtpu_torch.libs import metrics, trace
 
@@ -113,8 +115,6 @@ def verify_core_compact(pk_b, r_b, s_b, h_b, base_table):
 # Host-side preparation.
 
 _L_LE = np.frombuffer(int.to_bytes(L, 32, "little"), dtype=np.uint8)
-_ZERO32 = bytes(32)
-_ZERO64 = bytes(64)
 
 
 def lt_le(arr: np.ndarray, bound_le: np.ndarray) -> np.ndarray:
@@ -126,19 +126,23 @@ def lt_le(arr: np.ndarray, bound_le: np.ndarray) -> np.ndarray:
     return diff.any(axis=1) & (arr[rows, idx] < bound_le[idx])
 
 
+def _gather(col, width: int, ok: np.ndarray) -> np.ndarray:
+    """[B, width] uint8 rows of a column: lane i's bytes where ``ok[i]``
+    (its length is ``width``), else zeros. One gather, no loop a lane."""
+    idx = np.where(ok[:, None], col.lo[:, None] + np.arange(width), 0)
+    rows = col.buf[idx]
+    rows[~ok] = 0
+    return rows
+
+
 def host_lanes(pks, sigs):
-    """Lengths and byte rows of a batch (pks, sigs: bytes-like): (len_ok
-    bool [B], pk_arr, r_arr, s_arr, each [B, 32] uint8). Lanes with a wrong
-    length get zero bytes."""
-    B = len(sigs)
-    len_ok = ((np.fromiter(map(len, pks), dtype=np.int64, count=B) == 32)
-              & (np.fromiter(map(len, sigs), dtype=np.int64, count=B) == 64))
-    if not len_ok.all():
-        pks = [p if ok else _ZERO32 for p, ok in zip(pks, len_ok)]
-        sigs = [s if ok else _ZERO64 for s, ok in zip(sigs, len_ok)]
-    sig_arr = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(B, 64)
-    pk_arr = np.frombuffer(b"".join(pks), dtype=np.uint8).reshape(B, 32)
-    return len_ok, pk_arr, sig_arr[:, :32].copy(), sig_arr[:, 32:].copy()
+    """Lengths and byte rows of a batch (pks, sigs: columns or lists of
+    bytes-like): (len_ok bool [B], pk_arr, r_arr, s_arr, each [B, 32]
+    uint8). Lanes with a wrong length get zero bytes."""
+    pks, sigs = lanes.byte_column(pks), lanes.byte_column(sigs)
+    len_ok = (pks.lengths() == 32) & (sigs.lengths() == 64)
+    sig_arr = _gather(sigs, 64, len_ok)
+    return len_ok, _gather(pks, 32, len_ok), sig_arr[:, :32].copy(), sig_arr[:, 32:].copy()
 
 
 def _pack(pk_arr, r_arr, s_arr, h_arr, host_ok):
@@ -166,11 +170,11 @@ def prepare_batch_packed(pks, msgs, sigs):
 
     Lanes with wrong lengths, s >= L or a non-canonical A.y get
     well-formed dummy bytes and host_ok False; the device never sees those
-    checks. h = SHA-512(R || A || M) mod L, little-endian, and s < L come
-    from the port's C library (``native.prep_ed25519``)."""
-    len_ok, pk_arr, r_arr, s_arr = host_lanes(pks, sigs)
-    h_arr, s_ok = native.prep_ed25519(pk_arr, r_arr, s_arr, msgs)
-    return _pack(pk_arr, r_arr, s_arr, h_arr, len_ok & s_ok)
+    checks. The whole plane, h = SHA-512(R || A || M) mod L little-endian
+    among it, comes from the port's C library (``native.prep_ed25519``),
+    which reads the columns (``crypto/lanes.py``, or lists of bytes) where
+    they lie."""
+    return native.prep_ed25519(pks, msgs, sigs)
 
 
 def prepare_batch_packed_plain(pks, msgs, sigs):

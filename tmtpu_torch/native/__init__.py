@@ -4,8 +4,9 @@ and bound with ctypes.
 The counterpart of the reference package's native host prep, with its two
 device-path entries, and the signature cache's store:
 
-- ``prep_ed25519``: h = SHA-512(R || A || M) mod L and s < L per lane
-  (ed25519 host prep, ``gpu/verify.py::prepare_batch_packed``);
+- ``prep_ed25519``: the lengths, s < L, A.y < p and h = SHA-512(R || A ||
+  M) mod L per lane, written as the kernel's plane (ed25519 host prep,
+  ``gpu/verify.py::prepare_batch_packed``);
 - ``sr_challenges``: the merlin transcript walk of an sr25519 verify, k per
   lane (``gpu/sr_verify.py::prepare_sr_batch_packed``);
 - ``prep_k1``: the checks, SHA-256 and the scalars u1, u2 mod n of a
@@ -22,6 +23,11 @@ device-path entries, and the signature cache's store:
 - ``reduce_mod_l_for_tests``, ``mod_n_for_tests``: the prep's arithmetic
   mod L and mod the secp256k1 order n alone, which the tests hold against
   Python's ``int``.
+
+Keys, signatures and messages go in as columns (``crypto/lanes.py``: one
+buffer and int64 [lo, hi) offsets a lane; a list of byte strings is joined
+once into one), so a column over the sidecar's frame body reaches C as it
+is.
 
 The library is built at first use (``load``) into the gitignored
 ``tmtpu_torch/gpu/build/host/``, named by a hash of the source, the flags,
@@ -46,6 +52,8 @@ import threading
 
 import numpy as np
 
+from tmtpu_torch.crypto import lanes
+
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hostprep.c")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "gpu", "build", "host")
@@ -53,17 +61,18 @@ CFLAGS = ["-O2", "-shared", "-fPIC", "-pthread"]
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # n, pks, rs, ss, msgs, moff, h_out, s_ok, nthreads
-    "tmtpu_prep_ed25519": [ctypes.c_size_t, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int],
-    # n, pks, rs, msgs, moff, k_out, nthreads
-    "tmtpu_sr_challenges": [ctypes.c_size_t, _P, _P, _P, _P, _P, ctypes.c_int],
-    # n, pks, sigs, msgs, moff, packed_out, ok_out, nthreads -> -1 out of memory
-    "tmtpu_prep_k1": ([ctypes.c_size_t, _P, _P, _P, _P, _P, _P, ctypes.c_int],
-                      ctypes.c_int64),
-    # store, n, (types, toff), (pks, pkoff), (msgs, moff), (sigs, soff), keys_out,
-    # rep_out, nthreads -> hits
-    "tmtpu_cache_resolve": ([_P, ctypes.c_size_t, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             ctypes.c_int], ctypes.c_int64),
+    # n, pks (buf, lo, hi), sigs (buf, lo, hi), msgs (buf, lo, hi), packed_out,
+    # ok_out, nthreads
+    "tmtpu_prep_ed25519": [ctypes.c_size_t, *[_P] * 11, ctypes.c_int],
+    # n, pks, rs, msgs (buf, lo, hi), k_out, nthreads
+    "tmtpu_sr_challenges": [ctypes.c_size_t, _P, _P, _P, _P, _P, _P, ctypes.c_int],
+    # n, pks (buf, lo, hi), sigs (buf, lo, hi), msgs (buf, lo, hi), packed_out,
+    # ok_out, nthreads -> -1 out of memory
+    "tmtpu_prep_k1": ([ctypes.c_size_t, *[_P] * 11, ctypes.c_int], ctypes.c_int64),
+    # store, n, names (buf, lo, hi), kind, pks, msgs, sigs (each buf, lo, hi),
+    # keys_out, rep_out, nthreads -> hits
+    "tmtpu_cache_resolve": ([_P, ctypes.c_size_t, *[_P] * 15, ctypes.c_int],
+                            ctypes.c_int64),
     "tmtpu_cache_new": ([ctypes.c_int32, ctypes.c_int32], _P),
     "tmtpu_cache_free": [_P],
     "tmtpu_cache_clear": [_P],
@@ -165,61 +174,76 @@ def _rows(arr, n: int, width: int = 32) -> np.ndarray:
     return out
 
 
-def _concat(parts, n: int):
-    """(offsets [n + 1] uint64, the bytes-like parts end to end) for ctypes."""
+def _column(parts, n: int):
+    """``parts`` (a ``ByteColumn`` or byte strings) as the three pointers
+    of a C column (buf, lo, hi); the arrays ride along so they outlive the
+    call."""
     if len(parts) != n:
         raise ValueError(f"expected {n} byte strings, got {len(parts)}")
-    off = np.zeros(n + 1, dtype=np.uint64)
-    np.cumsum(np.fromiter(map(len, parts), dtype=np.uint64, count=n), out=off[1:])
-    blob = b"".join(parts)
-    return off, np.frombuffer(blob, dtype=np.uint8) if blob else np.zeros(1, np.uint8)
+    col = lanes.byte_column(parts)
+    arrays = (np.ascontiguousarray(col.buf, dtype=np.uint8),
+              np.ascontiguousarray(col.lo, dtype=np.int64),
+              np.ascontiguousarray(col.hi, dtype=np.int64))
+    buf, lo, hi = arrays
+    if buf.ndim != 1 or lo.shape != (n,) or hi.shape != (n,) or n and (
+            lo.min() < 0 or (hi < lo).any() or hi.max() > len(buf)):
+        raise ValueError("a column's offsets lie outside its buffer")
+    return [a.ctypes.data for a in arrays], arrays
 
 
-def prep_ed25519(pk_arr, r_arr, s_arr, msgs, nthreads=None):
-    """h = SHA-512(R || A || M) mod L and s < L for every lane.
+def _columns(n: int, *fields):
+    """Every field's three pointers in order, and the arrays behind them."""
+    ptrs, keep = [], []
+    for parts in fields:
+        p, arrays = _column(parts, n)
+        ptrs += p
+        keep.append(arrays)
+    return ptrs, keep
 
-    pk_arr, r_arr, s_arr: [B, 32] uint8; msgs: B bytes-like messages. Returns
-    (h_arr [B, 32] uint8 little-endian, s_ok bool [B])."""
+
+def prep_ed25519(pks, msgs, sigs, nthreads=None):
+    """The ed25519 host prep of every lane (``tmtpu_prep_ed25519``): pks,
+    msgs and sigs are columns or byte strings. Returns (packed [128, B]
+    uint8: pk | r | s | h as little-endian rows, h = SHA-512(R || A || M)
+    mod L; ok bool [B], False where a length, s < L or A.y < p refuses the
+    lane). A lane of the wrong length reads as zero key and signature
+    bytes; s is zero where the lengths or s < L refuse the lane."""
     lib = load()
-    n = len(msgs)
-    pk_arr, r_arr, s_arr = (_rows(a, n) for a in (pk_arr, r_arr, s_arr))
-    moff, mbuf = _concat(msgs, n)
-    h_out = np.empty((n, 32), dtype=np.uint8)
-    s_ok = np.empty(n, dtype=np.uint8)
-    lib.tmtpu_prep_ed25519(n, pk_arr.ctypes.data, r_arr.ctypes.data, s_arr.ctypes.data,
-                           mbuf.ctypes.data, moff.ctypes.data, h_out.ctypes.data,
-                           s_ok.ctypes.data, _threads(nthreads))
-    return h_out, s_ok.astype(bool)
+    n = len(sigs)
+    ptrs, _keep = _columns(n, pks, sigs, msgs)
+    packed = np.empty((128, n), dtype=np.uint8)
+    ok = np.empty(n, dtype=np.uint8)
+    lib.tmtpu_prep_ed25519(n, *ptrs, packed.ctypes.data, ok.ctypes.data, _threads(nthreads))
+    return packed, ok.astype(bool)
 
 
 def sr_challenges(pk_arr, r_arr, msgs, nthreads=None) -> np.ndarray:
     """The sr25519 verify challenge k = merlin challenge mod L for every
-    lane. pk_arr, r_arr: [B, 32] uint8; msgs: B bytes-like messages. Returns k_arr
-    [B, 32] uint8 little-endian."""
+    lane. pk_arr, r_arr: [B, 32] uint8; msgs: a column or B byte strings.
+    Returns k_arr [B, 32] uint8 little-endian."""
     lib = load()
     n = len(msgs)
     pk_arr, r_arr = _rows(pk_arr, n), _rows(r_arr, n)
-    moff, mbuf = _concat(msgs, n)
+    ptrs, _keep = _columns(n, msgs)
     k_out = np.empty((n, 32), dtype=np.uint8)
-    lib.tmtpu_sr_challenges(n, pk_arr.ctypes.data, r_arr.ctypes.data, mbuf.ctypes.data,
-                            moff.ctypes.data, k_out.ctypes.data, _threads(nthreads))
+    lib.tmtpu_sr_challenges(n, pk_arr.ctypes.data, r_arr.ctypes.data, *ptrs,
+                            k_out.ctypes.data, _threads(nthreads))
     return k_out
 
 
-def prep_k1(pk_arr, sig_arr, msgs, nthreads=None):
-    """The secp256k1 host prep of every lane (``tmtpu_prep_k1``): pk_arr
-    [B, 33] and sig_arr [B, 64] uint8, msgs B bytes-like messages. Returns
-    (packed [168, B] uint8: pkx | u1 | u2 | r | rpn as big-endian rows, the
-    prefix's parity in row 160, rows 161-167 zero; ok bool [B], False where
-    the prefix, x, r or s is refused, with dummy bytes in its column)."""
+def prep_k1(pks, msgs, sigs, nthreads=None):
+    """The secp256k1 host prep of every lane (``tmtpu_prep_k1``): pks,
+    msgs and sigs are columns or byte strings. Returns (packed [168, B]
+    uint8: pkx | u1 | u2 | r | rpn as big-endian rows, the prefix's parity
+    in row 160, rows 161-167 zero; ok bool [B], False where a length, the
+    prefix, x, r or s is refused, with dummy bytes in its column). A lane
+    of the wrong length reads as zero key and signature bytes."""
     lib = load()
-    n = len(msgs)
-    pk_arr, sig_arr = _rows(pk_arr, n, 33), _rows(sig_arr, n, 64)
-    moff, mbuf = _concat(msgs, n)
+    n = len(sigs)
+    ptrs, _keep = _columns(n, pks, sigs, msgs)
     packed = np.empty((168, n), dtype=np.uint8)
     ok = np.empty(n, dtype=np.uint8)
-    if lib.tmtpu_prep_k1(n, pk_arr.ctypes.data, sig_arr.ctypes.data, mbuf.ctypes.data,
-                         moff.ctypes.data, packed.ctypes.data, ok.ctypes.data,
+    if lib.tmtpu_prep_k1(n, *ptrs, packed.ctypes.data, ok.ctypes.data,
                          _threads(nthreads)) < 0:
         raise MemoryError("the secp256k1 host prep is out of memory")
     return packed, ok.astype(bool)
@@ -251,23 +275,37 @@ def mod_n_for_tests(values):
     return red, inv
 
 
+def _curve_names(types, n: int):
+    """The flush's curve names as (a ``ByteColumn`` of the distinct names,
+    int32 [n] name of each lane, or None where ``types`` is one name for
+    every lane)."""
+    if isinstance(types, str):
+        return lanes.ByteColumn.join([types.encode()]), None
+    if len(types) != n:
+        raise ValueError(f"expected {n} curve names, got {len(types)}")
+    index = {t: i for i, t in enumerate(dict.fromkeys(types))}
+    kind = np.fromiter(map(index.__getitem__, types), dtype=np.int32, count=n)
+    return lanes.ByteColumn.join([t.encode() for t in index]), kind
+
+
 def resolve(store, types, pks, msgs, sigs, nthreads=None):
-    """One flush's keys (``sigcache.cache_key`` of every lane; ``types`` the
-    curve names, the rest byte strings), looked up in order in ``store``
-    (a ``Store``; a hit refreshes its key; None: no lookups): (keys [B, 32]
+    """One flush's keys (``sigcache.cache_key`` of every lane; ``types``
+    the curve names, one a lane, or one name for every lane; the rest
+    columns or byte strings), looked up in order in ``store`` (a
+    ``Store``; a hit refreshes its key; None: no lookups): (keys [B, 32]
     uint8, rep int32 [B]), rep -1 for a hit and else the flush's first
     lane that missed with the same key."""
     lib = load()
-    n = len(types)
-    names = {t: t.encode() for t in set(types)}
-    fields = [_concat([names[t] for t in types], n), _concat(pks, n),
-              _concat(msgs, n), _concat(sigs, n)]
-    if any(int(np.diff(off).max(initial=0)) >= 1 << 32 for off, _ in fields):
+    n = len(sigs)
+    names, kind = _curve_names(types, n)
+    name_ptrs, name_keep = _columns(len(names), names)
+    ptrs, keep = _columns(n, pks, msgs, sigs)
+    if any(len(lo) and int((hi - lo).max()) >= 1 << 32 for _, lo, hi in name_keep + keep):
         raise ValueError("a cache key field is 2^32 bytes or longer")
-    args = [p for off, buf in fields for p in (buf.ctypes.data, off.ctypes.data)]
     keys = np.empty((n, 32), dtype=np.uint8)
     rep = np.empty(n, dtype=np.int32)
-    hits = lib.tmtpu_cache_resolve(None if store is None else store._h, n, *args,
+    hits = lib.tmtpu_cache_resolve(None if store is None else store._h, n, *name_ptrs,
+                                   None if kind is None else kind.ctypes.data, *ptrs,
                                    keys.ctypes.data, rep.ctypes.data, _threads(nthreads))
     if hits < 0:
         raise MemoryError("the signature cache's resolve is out of memory")
@@ -301,9 +339,9 @@ def sha256_ni(allow=None) -> bool:
 
 
 def cache_keys(types, pks, msgs, sigs, nthreads=None) -> np.ndarray:
-    """``sigcache.cache_key`` of every lane: ``types`` the curve names
-    (str), ``pks``, ``msgs``, ``sigs`` byte strings. Returns [B, 32] uint8,
-    one key a row."""
+    """``sigcache.cache_key`` of every lane: ``types`` the curve names (a
+    str a lane, or one str for all), ``pks``, ``msgs``, ``sigs`` columns or
+    byte strings. Returns [B, 32] uint8, one key a row."""
     return resolve(None, types, pks, msgs, sigs, nthreads)[0]
 
 

@@ -2,10 +2,11 @@
  *
  * Three batched prep entries, each threaded over ranges of lanes:
  *
- *   tmtpu_prep_ed25519   h = SHA-512(R || A || M) mod L and s < L per lane,
- *                        the host half of ed25519 verification (the
- *                        cofactorless Go-stdlib verify: crypto/ed25519's
- *                        Verify; Go's scMinimal for s < L);
+ *   tmtpu_prep_ed25519   the lengths, s < L, A.y < p and h = SHA-512(R ||
+ *                        A || M) mod L per lane, the host half of ed25519
+ *                        verification (the cofactorless Go-stdlib verify:
+ *                        crypto/ed25519's Verify; Go's scMinimal for s <
+ *                        L), written as the kernel's [128, n] plane;
  *   tmtpu_sr_challenges  the merlin transcript walk of an sr25519
  *                        (schnorrkel) verify, k = challenge mod L per lane;
  *   tmtpu_prep_k1        the checks, SHA-256 and u1 = e/s, u2 = r/s mod n
@@ -20,6 +21,10 @@
  * crypto/sigcache.py's ``cache_key``) on threads, looks each up and folds
  * the flush's repeated misses onto their first index, in one pass. Beside them, tmtpu_walk_verify, the sidecar's
  * walk of a VerifyRequest frame, which records where each field lies.
+ *
+ * A flush's keys, signatures and messages arrive as columns: one buffer
+ * and int64 [lo, hi) offsets a lane (bytes_col), which may be the
+ * sidecar's frame body itself, so no caller joins them first.
  *
  * Every prep output and key is a function of its lane's inputs alone, so
  * the bytes do not depend on the thread count. Pure C99 and POSIX threads;
@@ -81,6 +86,18 @@ static void run_ranges(size_t n, int nthreads, range_fn fn, const void *ctx) {
     }
     for (int t = 0; t < started; t++) pthread_join(tids[t], NULL);
 }
+
+/* ------------------------------------------------------------------ */
+/* Columns of byte strings: lane i is buf[lo[i], hi[i]).               */
+
+typedef struct {
+    const uint8_t *buf;
+    const int64_t *lo, *hi;
+} bytes_col;
+
+static const uint8_t *col_at(const bytes_col *c, size_t i) { return c->buf + c->lo[i]; }
+
+static size_t col_len(const bytes_col *c, size_t i) { return (size_t)(c->hi[i] - c->lo[i]); }
 
 /* ------------------------------------------------------------------ */
 /* SHA-512 (FIPS 180-4).                                               */
@@ -425,38 +442,61 @@ void tmtpu_reduce_mod_l(size_t n, const uint8_t *in, uint8_t *out) {
 }
 
 /* ------------------------------------------------------------------ */
-/* ed25519: h = SHA-512(R || A || M) mod L, and s < L.                 */
+/* ed25519: the kernel's plane of every lane.                          */
 
 typedef struct {
-    const uint8_t *pks, *rs, *ss, *msgs;
-    const uint64_t *moff;
-    uint8_t *h_out, *s_ok;
+    size_t n;
+    bytes_col pks, sigs, msgs;
+    uint8_t *packed, *ok;
 } ed_ctx;
 
+/* 32 bytes into rows [row, row + 32) of lane i's column of a plane of n
+ * lanes. */
+static void put_col(uint8_t *packed, size_t n, size_t i, int row, const uint8_t b[32]) {
+    for (int k = 0; k < 32; k++) packed[(size_t)(row + k) * n + i] = b[k];
+}
+
 static void ed_range(const void *arg, size_t lo, size_t hi) {
+    static const uint8_t zero[64];
     const ed_ctx *c = (const ed_ctx *)arg;
     for (size_t i = lo; i < hi; i++) {
+        int len_ok = col_len(&c->pks, i) == 32 && col_len(&c->sigs, i) == 64;
+        const uint8_t *pk = len_ok ? col_at(&c->pks, i) : zero;
+        const uint8_t *sig = len_ok ? col_at(&c->sigs, i) : zero;
         sha512_ctx sc;
-        uint8_t digest[64];
+        uint8_t digest[64], h[32];
         sha512_init(&sc);
-        sha512_update(&sc, c->rs + 32 * i, 32);
-        sha512_update(&sc, c->pks + 32 * i, 32);
-        sha512_update(&sc, c->msgs + c->moff[i], (size_t)(c->moff[i + 1] - c->moff[i]));
+        sha512_update(&sc, sig, 32);
+        sha512_update(&sc, pk, 32);
+        sha512_update(&sc, col_at(&c->msgs, i), col_len(&c->msgs, i));
         sha512_final(&sc, digest);
-        reduce_mod_l(digest, c->h_out + 32 * i);
+        reduce_mod_l(digest, h);
         uint64_t s[4];
-        for (int k = 0; k < 4; k++) s[k] = load_le64(c->ss + 32 * i + 8 * k);
-        c->s_ok[i] = !geq_n(s, L_LIMBS, 4);
+        for (int k = 0; k < 4; k++) s[k] = load_le64(sig + 32 + 8 * k);
+        int keep = len_ok && !geq_n(s, L_LIMBS, 4);
+        /* A.y < p on the sign-masked encoding: p = 2^255 - 19 */
+        int y_ok = pk[0] < 0xED || (pk[31] & 0x7F) != 0x7F;
+        for (int k = 1; k < 31 && !y_ok; k++) y_ok = pk[k] != 0xFF;
+        c->ok[i] = (uint8_t)(keep && y_ok);
+        put_col(c->packed, c->n, i, 0, pk);
+        put_col(c->packed, c->n, i, 32, sig);
+        put_col(c->packed, c->n, i, 64, keep ? sig + 32 : zero);
+        put_col(c->packed, c->n, i, 96, h);
     }
 }
 
-/* pks, rs, ss: n rows of 32 bytes; msgs: the messages end to end, lane i
- * at [moff[i], moff[i + 1]). h_out: n rows of 32 bytes; s_ok: n bytes. */
-void tmtpu_prep_ed25519(size_t n, const uint8_t *pks, const uint8_t *rs,
-                        const uint8_t *ss, const uint8_t *msgs,
-                        const uint64_t *moff, uint8_t *h_out, uint8_t *s_ok,
+/* Per lane: a key of 32 bytes and a signature of 64 (else both read as
+ * zero bytes), h = SHA-512(R || A || M) mod L, s < L, and A.y < p.
+ * packed_out: [128, n] row-major, lane i's column pk | r | s | h, s zero
+ * where the lengths or s < L refuse the lane; ok_out: n bytes, 1 where
+ * every check accepts it. */
+void tmtpu_prep_ed25519(size_t n, const uint8_t *pkbuf, const int64_t *pklo,
+                        const int64_t *pkhi, const uint8_t *sigbuf, const int64_t *siglo,
+                        const int64_t *sighi, const uint8_t *mbuf, const int64_t *mlo,
+                        const int64_t *mhi, uint8_t *packed_out, uint8_t *ok_out,
                         int nthreads) {
-    ed_ctx c = {pks, rs, ss, msgs, moff, h_out, s_ok};
+    ed_ctx c = {n, {pkbuf, pklo, pkhi}, {sigbuf, siglo, sighi}, {mbuf, mlo, mhi},
+                packed_out, ok_out};
     run_ranges(n, nthreads, ed_range, &c);
 }
 
@@ -566,15 +606,30 @@ void tmtpu_mod_n(size_t n, const uint8_t *in, uint8_t *red_out, uint8_t *inv_out
 
 typedef struct {
     size_t n;
-    const uint8_t *pks, *sigs, *msgs;
-    const uint64_t *moff;
+    bytes_col pks, sigs, msgs;
     uint8_t *packed, *ok;
     uint64_t *prefix; /* n rows of 4 limbs: the batch inversion's products */
 } k1_ctx;
 
 /* 32 big-endian bytes into rows [row, row + 32) of lane i's column. */
 static void k1_put(const k1_ctx *c, size_t i, int row, const uint8_t be[32]) {
-    for (int k = 0; k < 32; k++) c->packed[(size_t)(row + k) * c->n + i] = be[k];
+    put_col(c->packed, c->n, i, row, be);
+}
+
+/* Lane i's key and signature, or zero bytes for both where either has the
+ * wrong length (the prefix check then refuses the lane). */
+static int k1_len_ok(const k1_ctx *c, size_t i) {
+    return col_len(&c->pks, i) == 33 && col_len(&c->sigs, i) == 64;
+}
+
+static const uint8_t *k1_pk(const k1_ctx *c, size_t i) {
+    static const uint8_t zero[33];
+    return k1_len_ok(c, i) ? col_at(&c->pks, i) : zero;
+}
+
+static const uint8_t *k1_sig(const k1_ctx *c, size_t i) {
+    static const uint8_t zero[64];
+    return k1_len_ok(c, i) ? col_at(&c->sigs, i) : zero;
 }
 
 static int is_zero4(const uint64_t v[4]) { return !(v[0] | v[1] | v[2] | v[3]); }
@@ -589,7 +644,7 @@ static void k1_range(const void *arg, size_t lo, size_t hi) {
     const k1_ctx *c = (const k1_ctx *)arg;
     uint64_t acc[4] = {1, 0, 0, 0};
     for (size_t i = lo; i < hi; i++) {
-        const uint8_t *pk = c->pks + 33 * i, *sig = c->sigs + 64 * i;
+        const uint8_t *pk = k1_pk(c, i), *sig = k1_sig(c, i);
         uint64_t x[4], r[4], s[4];
         be32_to_limbs(pk + 1, x);
         be32_to_limbs(sig, r);
@@ -628,7 +683,7 @@ static void k1_range(const void *arg, size_t lo, size_t hi) {
     inv_mod_n(acc, inv); /* acc is 1 where the range accepted no lane */
     for (size_t i = hi; i-- > lo;) {
         if (!c->ok[i]) continue;
-        const uint8_t *sig = c->sigs + 64 * i;
+        const uint8_t *sig = k1_sig(c, i);
         uint64_t w[4], s[4], r[4], e[4], u[4];
         mul_mod_n(inv, c->prefix + 4 * i, w);
         be32_to_limbs(sig + 32, s);
@@ -636,7 +691,7 @@ static void k1_range(const void *arg, size_t lo, size_t hi) {
         sha256_ctx sc;
         uint8_t be[32];
         sha256_init(&sc);
-        sha256_update(&sc, c->msgs + c->moff[i], (size_t)(c->moff[i + 1] - c->moff[i]));
+        sha256_update(&sc, col_at(&c->msgs, i), col_len(&c->msgs, i));
         sha256_final(&sc, be);
         be32_to_limbs(be, e);
         mul_mod_n(e, w, u);
@@ -649,24 +704,27 @@ static void k1_range(const void *arg, size_t lo, size_t hi) {
     }
 }
 
-/* Per lane: the SEC 1 prefix is 2 or 3 and x < p, r is in [1, n - 1], s
- * in [1, n / 2] (low-S); e = SHA-256(msg), w = s^-1, u1 = e w, u2 = r w
- * mod n, rpn = r + n where that is below p, else r. pks: n rows of 33
- * bytes; sigs: n rows of 64 (r || s, big-endian); msgs end to end, lane
- * i at [moff[i], moff[i + 1]). packed_out: [168, n] row-major, lane i's
- * column pkx | u1 | u2 | r | rpn as big-endian 32-byte rows, the prefix's
- * parity in row 160 and rows 161-167 zero; a refused lane gets x = 0,
- * u1 = u2 = r = rpn = 1 and its prefix's parity. ok_out: n bytes, 1 where
- * the checks accept the lane. On nthreads threads, or fewer where a range
+/* Per lane: a key of 33 bytes and a signature of 64 (r || s, big-endian;
+ * else both read as zero bytes), the SEC 1 prefix is 2 or 3 and x < p, r
+ * is in [1, n - 1], s in [1, n / 2] (low-S); e = SHA-256(msg), w = s^-1,
+ * u1 = e w, u2 = r w mod n, rpn = r + n where that is below p, else r.
+ * Keys, signatures and messages are columns (buf, lo, hi). packed_out:
+ * [168, n] row-major, lane i's column pkx | u1 | u2 | r | rpn as
+ * big-endian 32-byte rows, the prefix's parity in row 160 and rows
+ * 161-167 zero; a refused lane gets x = 0, u1 = u2 = r = rpn = 1 and its
+ * prefix's parity. ok_out: n bytes, 1 where the checks accept the lane. On nthreads threads, or fewer where a range
  * would hold under K1_MIN_RANGE lanes. Returns 0, or -1 when out of
  * memory. */
-int64_t tmtpu_prep_k1(size_t n, const uint8_t *pks, const uint8_t *sigs,
-                      const uint8_t *msgs, const uint64_t *moff, uint8_t *packed_out,
-                      uint8_t *ok_out, int nthreads) {
+int64_t tmtpu_prep_k1(size_t n, const uint8_t *pkbuf, const int64_t *pklo,
+                      const int64_t *pkhi, const uint8_t *sigbuf, const int64_t *siglo,
+                      const int64_t *sighi, const uint8_t *mbuf, const int64_t *mlo,
+                      const int64_t *mhi, uint8_t *packed_out, uint8_t *ok_out,
+                      int nthreads) {
     if (!n) return 0;
     uint64_t *prefix = malloc(n * 4 * sizeof *prefix);
     if (!prefix) return -1;
-    k1_ctx c = {n, pks, sigs, msgs, moff, packed_out, ok_out, prefix};
+    k1_ctx c = {n, {pkbuf, pklo, pkhi}, {sigbuf, siglo, sighi}, {mbuf, mlo, mhi},
+                packed_out, ok_out, prefix};
     size_t most = (n + K1_MIN_RANGE - 1) / K1_MIN_RANGE;
     run_ranges(n, (size_t)nthreads < most ? nthreads : (int)most, k1_range, &c);
     free(prefix);
@@ -800,8 +858,8 @@ static void merlin_challenge(strobe128 *s, const char *label, uint8_t *out, size
 
 typedef struct {
     const strobe128 *base; /* the transcript up to the message */
-    const uint8_t *pks, *rs, *msgs;
-    const uint64_t *moff;
+    const uint8_t *pks, *rs;
+    bytes_col msgs;
     uint8_t *k_out;
 } sr_ctx;
 
@@ -810,8 +868,7 @@ static void sr_range(const void *arg, size_t lo, size_t hi) {
     for (size_t i = lo; i < hi; i++) {
         strobe128 s = *c->base;
         uint8_t wide[64];
-        merlin_append(&s, "sign-bytes", c->msgs + c->moff[i],
-                      (size_t)(c->moff[i + 1] - c->moff[i]));
+        merlin_append(&s, "sign-bytes", col_at(&c->msgs, i), col_len(&c->msgs, i));
         merlin_append(&s, "proto-name", (const uint8_t *)"Schnorr-sig", 11);
         merlin_append(&s, "sign:pk", c->pks + 32 * i, 32);
         merlin_append(&s, "sign:R", c->rs + 32 * i, 32);
@@ -823,15 +880,16 @@ static void sr_range(const void *arg, size_t lo, size_t hi) {
 /* Per lane: t = merlin("SigningContext"); t.append("", "");
  * t.append("sign-bytes", msg); t.append("proto-name", "Schnorr-sig");
  * t.append("sign:pk", pk); t.append("sign:R", r);
- * k = challenge_bytes("sign:c", 64) mod L. k_out: n rows of 32 bytes. */
+ * k = challenge_bytes("sign:c", 64) mod L. pks, rs: n rows of 32 bytes;
+ * the messages a column (buf, lo, hi). k_out: n rows of 32 bytes. */
 void tmtpu_sr_challenges(size_t n, const uint8_t *pks, const uint8_t *rs,
-                         const uint8_t *msgs, const uint64_t *moff,
+                         const uint8_t *mbuf, const int64_t *mlo, const int64_t *mhi,
                          uint8_t *k_out, int nthreads) {
     strobe128 base;
     strobe_init(&base, "Merlin v1.0");
     merlin_append(&base, "dom-sep", (const uint8_t *)"SigningContext", 14);
     merlin_append(&base, "", (const uint8_t *)"", 0);
-    sr_ctx c = {&base, pks, rs, msgs, moff, k_out};
+    sr_ctx c = {&base, pks, rs, {mbuf, mlo, mhi}, k_out};
     run_ranges(n, nthreads, sr_range, &c);
 }
 
@@ -839,23 +897,27 @@ void tmtpu_sr_challenges(size_t n, const uint8_t *pks, const uint8_t *rs,
 /* Signature cache: keys, store, resolve.                              */
 
 typedef struct {
-    const uint8_t *bufs[4];   /* curve names, pks, msgs, sigs, end to end */
-    const uint64_t *offs[4];  /* n + 1 offsets into each */
+    bytes_col names;          /* the flush's distinct curve names */
+    const int32_t *kind;      /* lane i's name; NULL: name 0 for every lane */
+    bytes_col fields[3];      /* pks, msgs, sigs */
     uint8_t *keys_out;
 } key_ctx;
+
+static void key_part(sha256_ctx *sc, const bytes_col *col, size_t i) {
+    uint64_t len = col_len(col, i);
+    uint8_t be[4] = {(uint8_t)(len >> 24), (uint8_t)(len >> 16), (uint8_t)(len >> 8),
+                     (uint8_t)len};
+    sha256_update(sc, be, 4);
+    sha256_update(sc, col_at(col, i), (size_t)len);
+}
 
 static void key_range(const void *arg, size_t lo, size_t hi) {
     const key_ctx *c = (const key_ctx *)arg;
     for (size_t i = lo; i < hi; i++) {
         sha256_ctx sc;
         sha256_init(&sc);
-        for (int f = 0; f < 4; f++) {
-            uint64_t len = c->offs[f][i + 1] - c->offs[f][i];
-            uint8_t be[4] = {(uint8_t)(len >> 24), (uint8_t)(len >> 16),
-                             (uint8_t)(len >> 8), (uint8_t)len};
-            sha256_update(&sc, be, 4);
-            sha256_update(&sc, c->bufs[f] + c->offs[f][i], (size_t)len);
-        }
+        key_part(&sc, &c->names, c->kind ? (size_t)c->kind[i] : 0);
+        for (int f = 0; f < 3; f++) key_part(&sc, &c->fields[f], i);
         sha256_final(&sc, c->keys_out + 32 * i);
     }
 }
@@ -1106,19 +1168,26 @@ int64_t tmtpu_cache_add(void *h, size_t n, const uint8_t *keys, int64_t *evicted
 }
 
 /* One flush's resolve. keys_out[i] = SHA-256(be32(len t) t be32(len pk) pk
- * be32(len m) m be32(len s) s) of lane i, each field's bytes end to end
- * with n + 1 offsets, every field shorter than 2^32 bytes (on ``nthreads``
- * threads). Then, in lane order, each key is looked up in the store ``h``
- * (a hit refreshes it; h NULL: no lookups, every lane a miss): rep_out[i]
+ * be32(len m) m be32(len s) s) of lane i, t its curve's name: name
+ * kind[i] of the columns names (buf, lo, hi), or name 0 for every lane
+ * where kind is NULL; pk, m and s from their columns (buf, lo, hi); every
+ * field shorter than 2^32 bytes (on ``nthreads`` threads). Then, in lane
+ * order, each key is looked up in the store ``h`` (a hit refreshes it; h
+ * NULL: no lookups, every lane a miss): rep_out[i]
  * is -1 for a hit, else the first lane of the flush that missed with the
  * same key (i itself for the first). Returns the hits, or -1 when out of
  * memory. */
-int64_t tmtpu_cache_resolve(void *h, size_t n, const uint8_t *types, const uint64_t *toff,
-                            const uint8_t *pks, const uint64_t *pkoff,
-                            const uint8_t *msgs, const uint64_t *moff,
-                            const uint8_t *sigs, const uint64_t *soff,
-                            uint8_t *keys_out, int32_t *rep_out, int nthreads) {
-    key_ctx kc = {{types, pks, msgs, sigs}, {toff, pkoff, moff, soff}, keys_out};
+int64_t tmtpu_cache_resolve(void *h, size_t n, const uint8_t *namebuf,
+                            const int64_t *namelo, const int64_t *namehi,
+                            const int32_t *kind, const uint8_t *pkbuf, const int64_t *pklo,
+                            const int64_t *pkhi, const uint8_t *mbuf, const int64_t *mlo,
+                            const int64_t *mhi, const uint8_t *sigbuf, const int64_t *siglo,
+                            const int64_t *sighi, uint8_t *keys_out, int32_t *rep_out,
+                            int nthreads) {
+    key_ctx kc = {{namebuf, namelo, namehi},
+                  kind,
+                  {{pkbuf, pklo, pkhi}, {mbuf, mlo, mhi}, {sigbuf, siglo, sighi}},
+                  keys_out};
     run_ranges(n, nthreads, key_range, &kc);
     size_t nslot = 16;
     while (nslot < 2 * n) nslot *= 2;

@@ -1,6 +1,7 @@
 """Cross-client batch coalescing: many requests, one device dispatch. The
 port's copy of ``tmtpu/sidecar/coalescer.py``, with requests carrying
-their lanes as four columns (keys, messages, signatures, powers).
+their lanes as four columns (keys, messages, signatures, powers; views
+over the frame body, ``crypto/lanes.py``, or lists).
 
 Requests from any number of connections enter per-curve queues; one
 dispatcher thread, the only one that launches kernels, gathers them under
@@ -46,18 +47,19 @@ wake-up, so the thread that waits on it can time the handoff.
 
 from __future__ import annotations
 
-import itertools
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from tmtpu_torch.crypto import lanes
 from tmtpu_torch.libs import metrics as lib_metrics
 from tmtpu_torch.libs import trace
 from tmtpu_torch.sidecar.metrics import SidecarMetrics
 
 # the verify engine: (curve, pks, msgs, sigs, powers, tally) -> the joint
 # mask; each request's tally is summed here from its own slice
-VerifyFn = Callable[[str, list, list, list, list, bool], List[bool]]
+VerifyFn = Callable[[str, lanes.Bytes, lanes.Bytes, lanes.Bytes, lanes.Powers, bool],
+                    List[bool]]
 
 
 class Overloaded(Exception):
@@ -417,13 +419,17 @@ class Coalescer:
     def _verify_joint(self, curve: str, live: List[PendingRequest], dispatch_id: int,
                       clients: int) -> None:
         """One engine call over the joined columns of ``live``, then each
-        request's slice of the mask and its tally, and its wake-up."""
-        pks, msgs, sigs, powers = [], [], [], []
-        for req in live:
-            pks += req.pks
-            msgs += req.msgs
-            sigs += req.sigs
-            powers += req.powers
+        request's slice of the mask and its tally, and its wake-up. A lone
+        request's columns go to the engine as they are; several requests'
+        are joined with one copy of their buffers (``lanes.concat_bytes``)."""
+        if len(live) == 1:
+            req = live[0]
+            pks, msgs, sigs, powers = req.pks, req.msgs, req.sigs, req.powers
+        else:
+            pks, msgs, sigs = lanes.concat_bytes([[req.pks for req in live],
+                                                  [req.msgs for req in live],
+                                                  [req.sigs for req in live]])
+            powers = lanes.concat_powers([lanes.power_column(req.powers) for req in live])
         tally = any(req.tally for req in live)
         t0 = time.perf_counter()
         try:
@@ -463,8 +469,7 @@ class Coalescer:
             req.mask = [bool(v) for v in mask[off:off + n]]
             # each request's tally from its own slice, in Python ints: the
             # joint sum belongs to nobody; verify-only requests get 0
-            req.tallied = (sum(itertools.compress(req.powers, req.mask))
-                           if req.tally else 0)
+            req.tallied = lanes.tally(req.powers, req.mask) if req.tally else 0
             req.dispatch_id = dispatch_id
             req.dispatch_lanes = len(sigs)
             req.dispatch_clients = clients

@@ -23,16 +23,19 @@ Verify masks travel bit-packed: lane i's verdict is bit ``i & 7`` of byte
 
 Beside the generic codec, which stays as the plain version, the daemon
 and the port's client take a columnar path for the one large message:
-``decode_verify_columns`` walks a ``VerifyRequest`` once into four lists
+``decode_verify_columns`` walks a ``VerifyRequest`` once into four columns
 (keys, messages, signatures, powers) with no ``Lane`` objects, and
 ``encode_verify_frame`` writes the same bytes as ``encode_frame`` from
-those lists. Both give exactly what the generic codec gives, errors
+such columns. Both give exactly what the generic codec gives, errors
 included. The walk of a body is C (``native.walk_verify``, which records
-where each field lies; Python cuts the columns out of the body); a body
-holding anything the C walk does not take goes through the Python walk
-(``_walk_verify_request``), which stays as the plain version. The C build
-is loaded at the first decode, so a client that only encodes needs no C
-compiler.
+where each field lies): its offsets become the columns directly, a
+``ByteColumn`` a field over the body itself and the powers an
+``IntColumn`` (``crypto/lanes.py``), so nothing is cut out of the body. A
+body holding anything the C walk does not take goes through the Python
+walk (``_walk_verify_request``), which stays as the plain version and
+gives lists; a column compares equal to the list of the same values. The
+C build is loaded at the first decode, so a client that only encodes
+needs no C compiler.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from typing import Dict, List, NamedTuple, Tuple, Type
 
 import numpy as np
 
+from tmtpu_torch.crypto import lanes
 from tmtpu_torch.sidecar.protoio import (
     DelimitedReader,
     ProtoMessage,
@@ -279,16 +283,17 @@ def parse_addr(addr: str) -> Tuple[str, object]:
 
 
 class VerifyColumns(NamedTuple):
-    """A decoded VerifyRequest with its lanes as four columns."""
+    """A decoded VerifyRequest with its lanes as four columns: views over
+    the frame body from the C walk, lists from the Python walk."""
     request_id: int
     curve: str
     tally: bool
     deadline_ms: int
     trace_ctx: bytes
-    pks: List[bytes]
-    msgs: List[bytes]
-    sigs: List[bytes]
-    powers: List[int]
+    pks: lanes.Bytes
+    msgs: lanes.Bytes
+    sigs: lanes.Bytes
+    powers: lanes.Powers
 
 
 def _uvarint(buf: bytes, pos: int, end: int) -> Tuple[int, int]:
@@ -417,7 +422,8 @@ def _walk_verify_request(buf: bytes, pos: int) -> VerifyColumns:
 
 def _native_columns(body: bytes):
     """The columns by the C walk (``native.walk_verify``), or None where the
-    body needs the Python walk."""
+    body needs the Python walk: each byte field a ``ByteColumn`` over the
+    body, the powers an ``IntColumn``."""
     from tmtpu_torch import native  # the C build only where a body is decoded
 
     out = native.walk_verify(body)
@@ -428,10 +434,11 @@ def _native_columns(body: bytes):
         curve = body[c_lo:c_hi].decode("utf-8")
     except UnicodeDecodeError:
         return None
-    lanes = out[:-1].T.tolist()
-    pks, msgs, sigs = ([body[a:b] for a, b in zip(lanes[i], lanes[i + 1])] for i in (0, 2, 4))
+    cols = out[:-1].T.copy()  # [7, B]: each field's lo and hi contiguous
+    buf = np.frombuffer(body, dtype=np.uint8)
+    pks, msgs, sigs = (lanes.ByteColumn(buf, cols[i], cols[i + 1]) for i in (0, 2, 4))
     return VerifyColumns(request_id, curve, bool(tally), deadline_ms, body[t_lo:t_hi],
-                         pks, msgs, sigs, lanes[6])
+                         pks, msgs, sigs, lanes.IntColumn(cols[6]))
 
 
 def decode_verify_walk(body: bytes) -> Tuple[VerifyColumns, str]:
